@@ -1,0 +1,596 @@
+"""K1, the de novo assembly sampler: CUDA kernel, wrapper and plain version.
+
+Replaces ``mchap_tpu/ops/pallas_denovo.py::pallas_denovo_sampler`` (body
+``_make_full_kernel``).  Each chain runs ``n_steps`` compound steps:
+
+1. an MH-within-Gibbs mutation sweep over the P x NB sites in
+   systematic h-major order, with the haplotype-copy proposal
+   correction (reference assemble/mutation.py:84-139) and an A == 2
+   fast path;
+2. a fused recombination + partial-dosage sweep over one Bernoulli
+   interval partition, capped at ``MAXSEG = max(2, min(NB, NB//4+2))``
+   segments (gates ``p_recomb``, ``p_partial``);
+3. the full-length dosage step (gate ``p_full``);
+
+with the per-read x haplotype log-likelihoods ``rh`` updated in place
+and rebuilt from the genotype every ``refresh`` steps.  Step 2 runs
+from ``stage >= 2``, step 3 from ``stage >= 3``; with P == 1 only the
+mutation sweep runs.
+
+``denovo_sampler`` launches ``csrc/denovo_sampler.cu`` on CUDA tensors
+(and raises if it cannot) and runs ``denovo_sampler_plain``, the same
+function in vectorised torch over chains, on CPU tensors.  Both consume
+the uniform draws of a step in the same order (``draw_layout``), so with
+pinned ``noise`` they compute the same Markov chain up to f32 summation
+order.
+
+Inputs are per problem, not per chain: ``lr`` f32[S, NB, A, R] (log read
+probabilities, reads last), ``counts`` f32[S, R], ``nall`` i32[S, NB]
+(1 marks a fixed position), ``pbreak`` f32[S], and ``problem`` i32[C]
+maps each chain to its problem.  ``g_init`` is i32[P, NB, C].
+Outputs: the base-``next_pow2(A)`` packed trace [n_steps, NB, C]
+(uint8/int16/int32 by ``base**P``) and llks f32[n_steps, C].
+"""
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+import torch
+
+NEG_BIG = -1e30
+_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "denovo_sampler.cu"
+_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".build" / "kernels"
+_MAX_SMEM = 227 * 1024  # bytes a block may use on Hopper (sm_90)
+_WARPS_PER_BLOCK = 4
+
+
+def next_pow2(x):
+    n = 1
+    while n < x:
+        n *= 2
+    return n
+
+
+def max_segments(n_base):
+    """Cap on interval-partition segments per structural sweep."""
+    return max(2, min(n_base, n_base // 4 + 2))
+
+
+def draw_layout(ploidy, n_base):
+    """Index of each uniform draw within a step, and the step's count D.
+
+    mutation site (h, j) -> h*NB + j; gate_r, gate_d; break before
+    position j (1..NB-1); per segment i a recombination and a dosage
+    draw; gate_f; the full dosage draw.
+    """
+    P, NB = ploidy, n_base
+    maxseg = max_segments(NB)
+    brk = P * NB + 2
+    seg = brk + NB - 1
+    full = seg + 2 * maxseg
+    return dict(
+        gate_r=P * NB, gate_d=P * NB + 1, brk=brk, seg=seg,
+        gate_f=full, full=full + 1, D=full + 2,
+    )
+
+
+def trace_dtype(n_alleles, ploidy):
+    """Storage type of the packed trace: values span [0, base**P - 1]."""
+    span = next_pow2(max(n_alleles, 2)) ** ploidy
+    if span <= 256:
+        return torch.uint8
+    if span <= 32768:
+        return torch.int16
+    return torch.int32
+
+
+def unpack_genotype_trace(packed, ploidy, n_alleles):
+    """Decode a packed trace: [n_steps, NB, C] -> int8[n_steps, P, NB, C]."""
+    base = next_pow2(max(n_alleles, 2))
+    packed = np.asarray(packed, np.int32)
+    shifts = np.array([base ** h for h in range(ploidy)], np.int32)
+    return (
+        (packed[:, None, :, :] // shifts[None, :, None, None]) % base
+    ).astype(np.int8)
+
+
+def _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps):
+    S, NB, A, R = lr.shape
+    P, _, C = g_init.shape
+    device = lr.device
+    expect = [
+        ("lr", lr, torch.float32, (S, NB, A, R)),
+        ("counts", counts, torch.float32, (S, R)),
+        ("g_init", g_init, torch.int32, (P, NB, C)),
+        ("nall", nall, torch.int32, (S, NB)),
+        ("pbreak", pbreak, torch.float32, (S,)),
+        ("problem", problem, torch.int32, (C,)),
+    ]
+    if noise is not None:
+        D = draw_layout(P, NB)["D"]
+        expect.append(("noise", noise, torch.float32, (n_steps, D, C)))
+    for name, t, dtype, shape in expect:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, lr on {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= P <= 8:
+        raise ValueError(f"ploidy {P} outside 1..8")
+    if A < 2:
+        raise ValueError("n_alleles must be >= 2")
+    if next_pow2(A) ** P >= 2 ** 31:
+        raise ValueError("base**ploidy must stay below 2**31 for int32 packing")
+    if n_steps < 1:
+        raise ValueError("n_steps must be >= 1")
+    return S, NB, A, R, P, C
+
+
+def denovo_sampler(lr, counts, g_init, nall, pbreak, problem, *, n_steps,
+                   p_recomb=0.5, p_partial=0.5, p_full=1.0, refresh=64,
+                   stage=3, seed=0, noise=None):
+    """Run the de novo sampler for C chains; see the module docstring.
+
+    On CUDA tensors this launches the kernel (and raises if it cannot);
+    on CPU tensors it runs ``denovo_sampler_plain``.  ``noise``
+    f32[n_steps, D, C] pins every uniform draw (tests); otherwise draws
+    come from Philox4x32-10 keyed by (seed, chain) on CUDA and from a
+    ``torch.Generator`` seeded with ``seed`` on the CPU.
+    """
+    _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps)
+    if stage not in (1, 2, 3):
+        raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
+    if refresh < 1:
+        raise ValueError("refresh must be >= 1")
+    kwargs = dict(
+        n_steps=n_steps, p_recomb=p_recomb, p_partial=p_partial,
+        p_full=p_full, refresh=refresh, stage=stage, seed=seed, noise=noise,
+    )
+    if lr.device.type == "cuda":
+        return _launch(lr, counts, g_init, nall, pbreak, problem, **kwargs)
+    if lr.device.type != "cpu":
+        raise ValueError(f"unsupported device {lr.device}")
+    return denovo_sampler_plain(
+        lr, counts, g_init, nall, pbreak, problem, **kwargs
+    )
+
+
+#: kernel launches made through ``denovo_sampler`` (CUDA tensors only)
+denovo_sampler.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build, load, launch
+# ---------------------------------------------------------------------------
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build_log_path():
+    return _BUILD_DIR / "denovo_sampler.log"
+
+
+def load_library():
+    """Build (at first use) and load the kernel's shared library.
+
+    ``nvcc`` compiles ``csrc/denovo_sampler.cu`` for sm_90a into
+    ``.build/kernels/``; the file name carries a hash of the source, so
+    an edited source is rebuilt.  ptxas's resource report is kept in
+    ``build_log_path()``.  Raises if the build fails.
+    """
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        source = _CSRC.read_bytes()
+        digest = hashlib.sha256(source).hexdigest()[:12]
+        lib_path = _BUILD_DIR / f"libdenovo_sampler_{digest}.so"
+        if not lib_path.exists():
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [
+                nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v", "-o", str(tmp), str(_CSRC),
+            ]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_log_path().write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+                )
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        fn = lib.denovo_sampler_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 9  # lr counts nall pbreak problem g0 noise trace llks
+            + [ctypes.c_int] * 7  # S R NB A P C n_steps
+            + [ctypes.c_float] * 3  # p_recomb p_partial p_full
+            + [ctypes.c_int] * 3  # refresh stage out_bytes
+            + [ctypes.c_uint64]  # seed
+            + [ctypes.c_int]  # warps per block
+            + [ctypes.c_void_p]  # stream
+        )
+        lib.denovo_sampler_smem_bytes.restype = ctypes.c_int64
+        lib.denovo_sampler_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.denovo_sampler_error_string.restype = ctypes.c_char_p
+        lib.denovo_sampler_error_string.argtypes = [ctypes.c_int]
+        _lib = lib
+        return lib
+
+
+def _launch(lr, counts, g_init, nall, pbreak, problem, *, n_steps, p_recomb,
+            p_partial, p_full, refresh, stage, seed, noise):
+    S, NB, A, R = lr.shape
+    P, _, C = g_init.shape
+    lib = load_library()
+    per_warp = lib.denovo_sampler_smem_bytes(P, R, NB)
+    if per_warp > _MAX_SMEM:
+        raise ValueError(
+            f"chain state needs {per_warp} bytes of shared memory"
+            f" (P*R*8 = {P * R * 8}); at most {_MAX_SMEM} fit in one block"
+        )
+    warps = max(1, min(_WARPS_PER_BLOCK, _MAX_SMEM // per_warp))
+    dtype = trace_dtype(A, P)
+    trace = torch.empty((n_steps, NB, C), dtype=dtype, device=lr.device)
+    llks = torch.empty((n_steps, C), dtype=torch.float32, device=lr.device)
+    stream = torch.cuda.current_stream(lr.device).cuda_stream
+    err = lib.denovo_sampler_launch(
+        lr.data_ptr(), counts.data_ptr(), nall.data_ptr(), pbreak.data_ptr(),
+        problem.data_ptr(), g_init.data_ptr(),
+        None if noise is None else noise.data_ptr(),
+        trace.data_ptr(), llks.data_ptr(),
+        S, R, NB, A, P, C, n_steps,
+        p_recomb, p_partial, p_full, refresh, stage, trace.element_size(),
+        seed & 0xFFFFFFFFFFFFFFFF, warps, stream,
+    )
+    if err != 0:
+        msg = lib.denovo_sampler_error_string(err).decode()
+        raise RuntimeError(f"denovo sampler kernel launch failed: {msg}")
+    denovo_sampler.launches += 1
+    return trace, llks
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (vectorised over chains)
+# ---------------------------------------------------------------------------
+
+
+def _option_pairs(ploidy, kind):
+    """(a, b) option table: recombination pairs a < b, dosage pairs a != b."""
+    P = ploidy
+    if kind == 0:
+        return [(a, b) for a in range(P) for b in range(a + 1, P)]
+    return [(a, b) for a in range(P) for b in range(P) if a != b]
+
+
+def _read_sum(x):
+    """Sum over the trailing read axis in the kernel's order.
+
+    The kernel gives each of a warp's 32 lanes the reads r = lane,
+    lane + 32, ..., summed in turn, then adds the lanes in an xor
+    butterfly; doing the same here keeps the two versions' MH decisions
+    apart only by elementwise rounding, not by summation order.
+    """
+    R = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, (-R) % 32))
+    x = x.reshape(x.shape[:-1] + (-1, 32))
+    acc = x[..., 0, :]
+    for k in range(1, x.shape[-2]):
+        acc = acc + x[..., k, :]
+    # lane 0 of the butterfly: lane i adds lane i ^ o, which for i < o
+    # is lane i + o, and lanes above o hold the same sums (a + b == b + a)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o : 2 * o]
+    return acc[..., 0]
+
+
+def _seq_cumsum(x):
+    """Cumulative sum over the last axis, added left to right."""
+    out = [x[..., 0]]
+    for k in range(1, x.shape[-1]):
+        out.append(out[-1] + x[..., k])
+    return torch.stack(out, dim=-1)
+
+
+def _lse_rows(rows):
+    """logsumexp over a list of [C, R] rows (sequential max and sum)."""
+    m = rows[0]
+    for o in rows[1:]:
+        m = torch.maximum(m, o)
+    acc = torch.zeros_like(m)
+    for o in rows:
+        acc = acc + torch.exp(o - m)
+    return m + torch.log(acc)
+
+
+def _first_of(eq):
+    """Label of each row: the first row equal to it.  eq [..., P, P] bool."""
+    return eq.to(torch.int8).argmax(dim=-2)
+
+
+def _option_terms(li, lo, pairs, kind):
+    """Per-option validity from row labels inside (li) and outside (lo) the
+    interval: reference recombination_n_options / dosage_n_options.
+
+    li, lo: [..., P] int; returns [..., K] bool.
+    """
+    P = li.shape[-1]
+    eq_in = li[..., :, None] == li[..., None, :]
+    eq_full = eq_in & (lo[..., :, None] == lo[..., None, :])
+    ar = torch.arange(P, device=li.device)
+    first_full = _first_of(eq_full) == ar
+    first_in = _first_of(eq_in) == ar
+    count_in = eq_in.sum(dim=-2)
+    pa = torch.tensor([a for a, _ in pairs], device=li.device)
+    pb = torch.tensor([b for _, b in pairs], device=li.device)
+    ne_in = ~eq_in[..., pa, pb]
+    if kind == 0:
+        return first_full[..., pa] & first_full[..., pb] & ne_in & (
+            lo[..., pa] != lo[..., pb]
+        )
+    sd_a = torch.where(first_in[..., pa], count_in[..., pa], 0)
+    return first_full[..., pa] & ((sd_a - 1).abs() > 0) & first_in[..., pb] & ne_in
+
+
+def _structural_mh(g, rh, rh_int, mask, llk, cnt, log_p, gate, u, kind,
+                   full_interval):
+    """One structural MH step over the interval ``mask``.
+
+    g [C, P, NB] long, rh [C, P, R], rh_int [C, P, R] interval sums,
+    mask [C, NB] bool.  Updates g and rh in place; returns (llk, rh_int
+    permuted by the applied move).
+    """
+    C, P, NB = g.shape
+    pairs = _option_pairs(P, kind)
+    K = len(pairs)
+    len_in = mask.sum(dim=1)  # [C]
+    eqpos = g[:, :, None, :] == g[:, None, :, :]  # [C, P, P, NB]
+    d_in = (eqpos & mask[:, None, None, :]).sum(dim=-1)
+    d_all = eqpos.sum(dim=-1)
+    e_in = d_in >= len_in[:, None, None]
+    e_out = (d_all - d_in) >= (NB - len_in)[:, None, None]
+    lab_in = _first_of(e_in)  # [C, P]
+    lab_out = _first_of(e_out)
+    valid = _option_terms(lab_in, lab_out, pairs, kind)  # [C, K]
+    n_options = valid.sum(dim=1).to(torch.float32)
+
+    # labels after each option, for the reverse-move count n_return
+    src = torch.arange(P).repeat(K, 1)  # [K, P] source row of each new row
+    for k, (a, b) in enumerate(pairs):
+        src[k, a] = b
+        if kind == 0:
+            src[k, b] = a
+    src = src.to(g.device)
+    li_k = lab_in[:, src]  # [C, K, P]
+    lo_k = lab_out[:, None, :].expand(C, K, P)
+    n_return = _option_terms(li_k, lo_k, pairs, kind).sum(dim=-1)  # [C, K]
+
+    # shared-anchor scoring: every excluded-row sum is built by adding
+    # the kept rows' exp(row - anchor) in row order, as the kernel does
+    pa = torch.tensor([a for a, _ in pairs], device=g.device)
+    pb = torch.tensor([b for _, b in pairs], device=g.device)
+    ar = torch.arange(P, device=g.device)
+    kept = ar != pa[:, None]  # [K, P]
+    if kind == 0:
+        kept = kept & (ar != pb[:, None])
+    m_anchor = rh.max(dim=1).values[:, None]  # [C, 1, R]
+    e_rows = torch.exp(rh - m_anchor)  # [C, P, R]
+    se = torch.zeros((C, K, rh.shape[-1]), dtype=torch.float32, device=g.device)
+    for h in range(P):
+        se = torch.where(kept[None, :, h, None], se + e_rows[:, h, None], se)
+
+    def log_of(e_sum):
+        return torch.log(torch.clamp(e_sum, min=1e-30)) + m_anchor
+
+    if kind == 0:
+        row_a = rh[:, pa] - rh_int[:, pa] + rh_int[:, pb]
+        row_b = rh[:, pb] - rh_int[:, pb] + rh_int[:, pa]
+        cand = torch.logaddexp(torch.logaddexp(row_a, row_b), log_of(se))
+    elif full_interval:
+        cand = log_of(se + e_rows[:, pb])
+    else:
+        row_a = rh[:, pa] - rh_int[:, pa] + rh_int[:, pb]
+        cand = torch.logaddexp(row_a, log_of(se))
+    llk_opts = _read_sum(cnt[:, None] * (cand - log_p))  # [C, K]
+
+    n_opt1 = torch.clamp(n_options, min=1.0)[:, None]
+    lp = torch.log(n_opt1) - torch.log(torch.clamp(n_return.float(), min=1.0))
+    mh = (llk_opts - llk[:, None]) + lp
+    probs = torch.where(
+        valid & gate[:, None],
+        torch.exp(torch.clamp(mh, max=0.0)) / n_opt1,
+        torch.zeros((), dtype=torch.float32, device=g.device),
+    )
+    cdf = _seq_cumsum(probs)
+    chosen = (cdf <= u[:, None]).sum(dim=1).clamp(max=K - 1)
+    moved = u < cdf[:, -1]
+
+    ident = torch.arange(P, device=g.device).expand(C, P)
+    row_src = torch.where(moved[:, None], src[chosen], ident)  # [C, P]
+    changed = row_src != ident
+    g_src = torch.gather(g, 1, row_src[:, :, None].expand(C, P, NB))
+    g.copy_(torch.where(mask[:, None, :], g_src, g))
+    rh_int_new = torch.gather(
+        rh_int, 1, row_src[:, :, None].expand_as(rh_int)
+    )
+    rh.copy_(torch.where(changed[:, :, None], rh - rh_int + rh_int_new, rh))
+    llk = torch.where(moved, llk_opts.gather(1, chosen[:, None])[:, 0], llk)
+    return llk, rh_int_new
+
+
+def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
+                         n_steps, p_recomb=0.5, p_partial=0.5, p_full=1.0,
+                         refresh=64, stage=3, seed=0, noise=None):
+    """The kernel's Markov chain in vectorised torch (reference version)."""
+    S, NB, A, R, P, C = _check_inputs(
+        lr, counts, g_init, nall, pbreak, problem, noise, n_steps
+    )
+    device = lr.device
+    lay = draw_layout(P, NB)
+    maxseg = max_segments(NB)
+    base = next_pow2(A)
+    gen = None
+    if noise is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+    prob = problem.long()
+    lrc = lr[prob]  # [C, NB, A, R]
+    cnt = counts[prob]  # [C, R]
+    nallc = nall[prob]  # [C, NB]
+    pbc = pbreak[prob]  # [C]
+    log_p = torch.log(torch.tensor(float(P), dtype=torch.float32))
+    g = g_init.permute(2, 0, 1).long().contiguous()  # [C, P, NB]
+    rh = torch.zeros((C, P, R), dtype=torch.float32, device=device)
+    llk = torch.zeros(C, dtype=torch.float32, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    ar_p = torch.arange(P, device=device)
+    ar_a = torch.arange(A, device=device)
+    trace = torch.empty((n_steps, NB, C), dtype=trace_dtype(A, P), device=device)
+    llks = torch.empty((n_steps, C), dtype=torch.float32, device=device)
+    weights = torch.tensor([base ** h for h in range(P)], device=device)
+
+    def row_sums(mask=None):
+        """sum over positions (in order) of lr at each row's allele,
+        restricted to ``mask`` [C, NB]: -> [C, P, R]."""
+        idx = g[:, :, :, None, None].expand(C, P, NB, 1, R)
+        src = lrc[:, None].expand(C, P, NB, A, R)
+        sel = torch.gather(src, 3, idx)[:, :, :, 0, :]  # [C, P, NB, R]
+        acc = torch.zeros((C, P, R), dtype=torch.float32, device=device)
+        for j in range(NB):
+            if mask is None:
+                acc = acc + sel[:, :, j]
+            else:
+                acc = torch.where(mask[:, j, None, None], acc + sel[:, :, j], acc)
+        return acc
+
+    def sel1(lr_j, val):
+        """lr_j [C, A, R] at allele val [C] -> [C, R]."""
+        return torch.gather(lr_j, 1, val[:, None, None].expand(C, 1, R))[:, 0]
+
+    for step in range(n_steps):
+        if noise is not None:
+            uni = noise[step]  # [D, C]
+        else:
+            uni = torch.rand(
+                (lay["D"], C), generator=gen, device=device
+            ).clamp_(min=1e-12)
+
+        if step % refresh == 0:
+            rh = row_sums()
+            llk = _read_sum(cnt * (_lse_rows([rh[:, h] for h in range(P)]) - log_p))
+
+        # 1. mutation sweep, systematic h-major site order
+        for h in range(P):
+            others = [rh[:, i] for i in range(P) if i != h]
+            if others:
+                rest = _lse_rows(others)
+            else:
+                rest = torch.full((C, R), NEG_BIG, device=device)
+            d = (g == g[:, h : h + 1]).sum(dim=2)  # [C, P] row matches
+            other = ar_p != h
+            for j in range(NB):
+                cur = g[:, h, j]
+                lr_j = lrc[:, j]  # [C, A, R]
+                lr_cur = sel1(lr_j, cur)
+                b = rh[:, h] - lr_cur
+                nall_j = nallc[:, j]
+                colv = g[:, :, j]  # [C, P]
+                eqj = colv == cur[:, None]
+                eq_ex = ((d - eqj.long()) >= NB - 1) & other
+                u = uni[h * NB + j]
+                if A == 2:
+                    alt = 1 - cur
+                    lr_alt = sel1(lr_j, alt)
+                    cand = torch.logaddexp(rest, b + lr_alt)
+                    llk_alt = _read_sum(cnt * (cand - log_p))
+                    count_cur = 1.0 + (eq_ex & eqj).sum(dim=1).float()
+                    count_alt = 1.0 + (eq_ex & ~eqj).sum(dim=1).float()
+                    mh = (llk_alt - llk) + torch.log(count_alt) - torch.log(count_cur)
+                    p_acc = torch.where(
+                        nall_j > 1, torch.exp(torch.clamp(mh, max=0.0)), zero
+                    )
+                    moved = u < p_acc
+                    new = torch.where(moved, alt, cur)
+                    lr_new = lr_alt
+                    llk = torch.where(moved, llk_alt, llk)
+                else:
+                    cand = torch.logaddexp(rest[:, None], b[:, None] + lr_j)
+                    llk_a = _read_sum(cnt[:, None] * (cand - log_p))  # [C, A]
+                    counts_a = 1.0 + (
+                        eq_ex[:, :, None] & (colv[:, :, None] == ar_a)
+                    ).sum(dim=1).float()  # [C, A]
+                    count_cur = counts_a.gather(1, cur[:, None])[:, 0]
+                    valid = (
+                        (ar_a < nall_j[:, None])
+                        & (ar_a != cur[:, None])
+                        & (nall_j[:, None] > 1)
+                    )
+                    n_opt = torch.clamp(valid.sum(dim=1).float(), min=1.0)
+                    mh = (llk_a - llk[:, None]) + torch.log(counts_a) - torch.log(
+                        count_cur
+                    )[:, None]
+                    probs = torch.where(
+                        valid, torch.exp(torch.clamp(mh, max=0.0)) / n_opt[:, None],
+                        zero,
+                    )
+                    cdf = _seq_cumsum(probs)
+                    chosen = (cdf <= u[:, None]).sum(dim=1).clamp(max=A - 1)
+                    moved = u < cdf[:, -1]
+                    new = torch.where(moved, chosen, cur)
+                    lr_new = sel1(lr_j, new)
+                    llk = torch.where(moved, llk_a.gather(1, chosen[:, None])[:, 0], llk)
+                rh[:, h] = torch.where(moved[:, None], b + lr_new, rh[:, h])
+                d = d + (moved[:, None] & other) * (
+                    (colv == new[:, None]).long() - eqj.long()
+                )
+                g[:, h, j] = new
+
+        # 2. fused recombination + partial-dosage sweep
+        if stage >= 2 and P > 1:
+            gate_r = uni[lay["gate_r"]] <= p_recomb
+            gate_d = uni[lay["gate_d"]] <= p_partial
+            seg = torch.zeros((C, NB), dtype=torch.long, device=device)
+            acc = torch.zeros(C, dtype=torch.long, device=device)
+            for j in range(1, NB):
+                brk = uni[lay["brk"] + j - 1] < pbc
+                acc = torch.clamp(acc + brk.long(), max=maxseg - 1)
+                seg[:, j] = acc
+            for i in range(maxseg):
+                mask = seg == i
+                rh_int = row_sums(mask)
+                llk, rh_int = _structural_mh(
+                    g, rh, rh_int, mask, llk, cnt, log_p, gate_r,
+                    uni[lay["seg"] + 2 * i], 0, False,
+                )
+                if stage >= 3:
+                    llk, _ = _structural_mh(
+                        g, rh, rh_int, mask, llk, cnt, log_p, gate_d,
+                        uni[lay["seg"] + 2 * i + 1], 1, False,
+                    )
+
+        # 3. full-length dosage step: the interval sums are the rh rows
+        if stage >= 3 and P > 1:
+            gate_f = uni[lay["gate_f"]] <= p_full
+            mask = torch.ones((C, NB), dtype=torch.bool, device=device)
+            llk, _ = _structural_mh(
+                g, rh, rh.clone(), mask, llk, cnt, log_p, gate_f,
+                uni[lay["full"]], 1, True,
+            )
+
+        trace[step] = (g * weights[None, :, None]).sum(dim=1).T.to(trace.dtype)
+        llks[step] = llk
+    return trace, llks
+
