@@ -2,18 +2,34 @@
 
 Usage: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 
-Builds the port's CUDA kernel (K1, the de novo sampler) from
-``mchap_tpu_torch/csrc`` and runs four phases, each printing one line:
+Builds the port's two CUDA kernel libraries from ``mchap_tpu_torch/csrc``
+in parallel -- ``denovo_sampler.cu`` (K1, the de novo sampler, and K0,
+one mutation sweep) and ``calling_sampler.cu`` (K2, the calling sampler)
+-- and runs nine phases, each printing one line:
 
-A. kernel vs its plain PyTorch version on the card, pinned noise;
-B. kernel with its own Philox stream vs exact enumeration;
+A. K1 vs its plain PyTorch version on the card, pinned noise;
+B. K1 with its own Philox stream vs exact enumeration;
 C. ``mchap assemble`` end to end through the port's CLI entry point on
    a synthetic 22-sample x 20-locus tetraploid dataset, counting K1
    launches and checking genotype calls against the truth;
-D. kernel and plain throughput at 16,384 chains x 200 steps.
+D. K1 and plain throughput at 16,384 chains x 200 steps;
+E. K2 vs its plain version, pinned noise;
+F. K2 with its own Philox stream vs exact enumeration;
+G. ``mchap call`` end to end on phase C's reads with phase C's output
+   VCF as the haplotype panel, counting K2 launches;
+H. K2 and plain throughput at 65,536 chains x 500 steps;
+I. K0 vs its plain version, pinned noise, then one sweep timed.
 
-The line before last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises.
+Each kernel's least time on the card (``bound_ms``) is the largest of
+its f32 operations over 67 TFLOP/s, its transcendentals (exp, log) over
+the special-function units' rate (16 per SM per clock, CUDA C++
+Programming Guide, compute capability 9.0, at the card's maximum SM
+clock) and its bytes over 3.35 TB/s; operations are counted from the
+kernel's source at the phase's shapes (``*_work``), leaving out work
+that depends on the data (accepted moves, gated structural steps), so
+the bound stays a lower bound.  The line before last is a JSON object
+describing each kernel; the last line is ``{"ok": true, "device":
+{...}}``.  Any failure raises.
 """
 
 import contextlib
@@ -194,7 +210,56 @@ def phase_b(device):
     return tv
 
 
-def phase_c(device):
+def _reset_launches():
+    from mchap_tpu_torch.ops import cuda_calling as KC
+    from mchap_tpu_torch.ops import cuda_denovo as K
+
+    K.denovo_sampler.launches = 0
+    K.mutation_sweep.launches = 0
+    KC.calling_sampler.launches = 0
+
+
+def _launches():
+    from mchap_tpu_torch.ops import cuda_calling as KC
+    from mchap_tpu_torch.ops import cuda_denovo as K
+
+    return dict(
+        denovo_sampler=K.denovo_sampler.launches,
+        calling_sampler=KC.calling_sampler.launches,
+        mutation_sweep=K.mutation_sweep.launches,
+    )
+
+
+def _run_cli(argv):
+    """Run the port's CLI in process with every launch count at 0 just
+    before; returns (exit code, VCF text, wall s, launches, timers)."""
+    from mchap_tpu_torch.application.cli import main as cli_main
+    from mchap_tpu_torch.utils import fallback, timing
+
+    os.environ["MCHAP_TIMING"] = "1"
+    timers = timing.reset()
+    fallback.PATHS.clear()
+    out = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    return rc, out.getvalue(), wall, _launches(), timers
+
+
+def _truth_agreement(records, truth):
+    from test_torch_fixtures import called_haplotypes
+
+    agree = total = 0
+    for rec in records:
+        for sample, haps in called_haplotypes(rec).items():
+            total += 1
+            agree += haps == truth[rec["ID"]][sample]
+    return agree, total
+
+
+def phase_c(device, extra=()):
     """``mchap assemble`` at default settings through the CLI entry point.
 
     Synthetic dataset at the size of the reference's bundled bi-parental
@@ -204,12 +269,9 @@ def phase_c(device):
     that differ from the reference at 6 SNVs each.
     """
     sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_fixtures import called_haplotypes, parse_vcf_records, write_dataset
+    from test_torch_fixtures import parse_vcf_records, write_dataset
 
-    from mchap_tpu_torch.application.cli import main as cli_main
     from mchap_tpu_torch.constant import PFEIFFER_ERROR
-    from mchap_tpu_torch.ops import cuda_denovo as K
-    from mchap_tpu_torch.utils import timing
 
     n_loci = 20
     snvs = [44] * 6 + [43] * 14  # 866 in all
@@ -222,48 +284,87 @@ def phase_c(device):
     argv = [
         "mchap", "assemble", "--bam", *data["bams"], "--ploidy", "4",
         "--targets", data["targets"], "--variants", data["variants"],
-        "--reference", data["reference"],
+        "--reference", data["reference"], *extra,
     ]
-    os.environ["MCHAP_TIMING"] = "1"
-    timers = timing.reset()
-    out = io.StringIO()
-    K.denovo_sampler.launches = 0
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        rc = cli_main(argv)
-    wall = time.perf_counter() - t0
-    launches = K.denovo_sampler.launches
-    (WORK / "assemble" / "out.vcf").write_text(out.getvalue())
-    records = parse_vcf_records(out.getvalue())
-    agree = total = 0
-    for rec in records:
-        for sample, haps in called_haplotypes(rec).items():
-            total += 1
-            agree += haps == data["truth"][rec["ID"]][sample]
+    rc, vcf, wall, launches, timers = _run_cli(argv)
+    data["assembled"] = WORK / "assemble" / "out.vcf"
+    data["assembled"].write_text(vcf)
+    records = parse_vcf_records(vcf)
+    agree, total = _truth_agreement(records, data["truth"])
     frac = agree / max(total, 1)
+    k1 = launches["denovo_sampler"]
     print(
         f"phase C: assemble exit {rc}, {len(records)} records, K1 launches"
-        f" {launches}, GT == truth {agree}/{total} = {frac:.4f} (bound 0.90);"
+        f" {k1}, GT == truth {agree}/{total} = {frac:.4f} (bound 0.90);"
         f" wall {wall:.2f} s = {n_loci / wall:.3f} loci/s",
         flush=True,
     )
     for line in timers.summary_lines():
         print("phase C timing:", line, flush=True)
-    if rc != 0 or len(records) != n_loci or launches < 1 or total != 440 or frac < 0.90:
+    if rc != 0 or len(records) != n_loci or k1 < 1 or total != 440 or frac < 0.90:
         _fail("phase C")
-    return launches
+    return launches, data
 
 
-def phase_d(device):
-    """Kernel and plain throughput at the de novo bench shape."""
+def _work(flops, transcendentals, nbytes):
+    return dict(flops=float(flops), transcendentals=float(transcendentals),
+                bytes=float(nbytes))
+
+
+def _denovo_work(P, NB, A, R, S, C, T, trace_bytes):
+    """K1 per launch, counted from denovo_sampler.cu: every site's
+    candidate pass of the mutation sweep (per read and option: 10 f32
+    operations, expf and log1pf; a 5-step butterfly per option), the
+    other rows' logsumexp per row, and the interval sums of stage 2.
+    Accepted moves and gated structural steps depend on the data and
+    are left out."""
+    per_step_flops = (
+        P * NB * (A - 1) * (10 * R + 5 * 32) + P * R * (3 * P - 2) + P * NB * R
+    )
+    per_step_tr = P * NB * (A - 1) * 2 * R + P * R * P
+    nbytes = (
+        4 * (S * NB * A * R + S * R + S * NB + S + C + P * NB * C + T * C)
+        + trace_bytes * T * NB * C
+    )
+    return _work(per_step_flops * C * T, per_step_tr * C * T, nbytes)
+
+
+def _calling_work(P, R, H, S, C, T):
+    """K2 per launch, counted from calling_sampler.cu: per slot the other
+    slots' e summed per read, then per candidate and read an add, a
+    logf, an add and a multiply-add, and per candidate log1pf, two logf
+    for the Gumbel draw and two operations."""
+    per_step_flops = P * (R * max(P - 2, 0) + H * (4 * R + 2))
+    per_step_tr = P * H * (R + 3)
+    nbytes = 4 * (S * R * H + S * R + S + C + T * C) + T * P * C
+    return _work(per_step_flops * C * T, per_step_tr * C * T, nbytes)
+
+
+def _mutation_work(P, NB, A, R, C):
+    """K0 per launch: rh rebuilt from the genotype, then one mutation
+    sweep counted as in ``_denovo_work``; bytes in the JAX layout."""
+    flops = P * NB * R + P * NB * (A - 1) * (10 * R + 5 * 32) + P * R * (3 * P - 2)
+    tr = P * NB * (A - 1) * 2 * R + P * R * P
+    nbytes = 4 * (R * NB * A * C + R * C + 2 * P * NB * A * C + 2 * C + NB + P * R * C)
+    return _work(flops * C, tr * C, nbytes)
+
+
+def _bound(work, card):
+    """Least time in ms, and whether bytes or operations set it."""
+    t_bytes = work["bytes"] / 3.35e12
+    t_ops = max(work["flops"] / 67e12, work["transcendentals"] / card["sfu_rate"])
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_d(device, card):
+    """K1 and plain throughput at the de novo bench shape."""
     import numpy as np
-    import torch
 
     from mchap_tpu_torch.ops import cuda_denovo as K
 
-    P, NB, A, R, C, STEPS = 4, 16, 2, 64, 16384, 200
+    P, NB, A, R, C, STEPS, S = 4, 16, 2, 64, 16384, 200, 64
     rng = np.random.default_rng(7)
-    args = _inputs(rng, 64, P, NB, A, R, C, device)
+    args = _inputs(rng, S, P, NB, A, R, C, device)
     K.denovo_sampler(*args, n_steps=2)  # warm-up
     k_ms = _time_cuda(lambda: K.denovo_sampler(*args, n_steps=STEPS, seed=3), 3)
     plain_steps = 20
@@ -271,15 +372,322 @@ def phase_d(device):
     p_ms = _time_cuda(
         lambda: K.denovo_sampler_plain(*args, n_steps=plain_steps, seed=3), 1
     )
-    k_rate = C * STEPS / (k_ms / 1e3)
-    p_rate = C * plain_steps / (p_ms / 1e3)
+    work = _denovo_work(P, NB, A, R, S, C, STEPS, 1)
+    bound_ms, bound_by = _bound(work, card)
     print(
         f"phase D: {C} chains P{P} NB{NB} A{A} R{R}: kernel {k_ms:.1f} ms for"
-        f" {STEPS} steps = {k_rate:.4g} chain-steps/s; plain {p_ms:.1f} ms for"
-        f" {plain_steps} steps = {p_rate:.4g} chain-steps/s",
+        f" {STEPS} steps = {C * STEPS / (k_ms / 1e3):.4g} chain-steps/s; plain"
+        f" {p_ms:.1f} ms for {plain_steps} steps ="
+        f" {C * plain_steps / (p_ms / 1e3):.4g} chain-steps/s; bound"
+        f" {bound_ms:.3f} ms by {bound_by} ({work['flops']:.3g} flops,"
+        f" {work['transcendentals']:.3g} exp/log, {work['bytes']:.3g} bytes),"
+        f" kernel at {bound_ms / k_ms:.2%} of it",
         flush=True,
     )
-    return k_ms / STEPS, p_ms / plain_steps
+    return dict(ms=k_ms / STEPS, plain_ms=p_ms / plain_steps,
+                bound_ms=bound_ms / STEPS, bound_by=bound_by)
+
+
+def _calling_inputs(rng, S, P, H, R, C, device, NB=12, n_valid=None):
+    """Per-problem read x haplotype log-probabilities [S, R, H] of reads
+    simulated from P of a random H-haplotype panel over NB SNVs.  With
+    ``n_valid`` (cycled over the problems), problem s keeps its first
+    n_valid[s] haplotypes and its other columns are MIN_LOG padding, as
+    ``fit_calling_multi`` pads a block's panels to the largest."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops.likelihood import MIN_LOG, prepare_reads, read_hap_loglik
+    from mchap_tpu_torch.testing import simulate_reads
+
+    n_valid = np.resize(np.asarray(H if n_valid is None else n_valid, np.int32), S)
+    rh = np.zeros((S, R, H), np.float32)
+    for s in range(S):
+        panel = rng.integers(0, 2, size=(H, NB))
+        truth = panel[rng.choice(n_valid[s], P)]
+        reads = simulate_reads(truth, n_alleles=2, n_reads=R, errors=True,
+                               error_rate=0.0024, seed=int(rng.integers(1 << 30)))
+        rh[s] = read_hap_loglik(prepare_reads(reads), panel).numpy()
+        rh[s, :, n_valid[s]:] = MIN_LOG
+    counts = rng.integers(1, 3, size=(S, R)).astype(np.float32)
+    prob = (np.arange(C) % S).astype(np.int32)
+    return [torch.from_numpy(x).to(device) for x in (rh, counts, n_valid, prob)]
+
+
+def _calling_recompute(alleles, rh, counts, prob, P):
+    """f64 llk of every traced genotype: [n_steps, C]."""
+    import torch
+
+    rhc = rh.double()[prob.long()]  # [C, R, H]
+    cnt = counts.double()[prob.long()]
+    out = []
+    for t in range(alleles.shape[0]):
+        g = alleles[t].long().T  # [C, P]
+        sel = torch.gather(rhc, 2, g[:, None, :].expand(-1, rhc.shape[1], -1))
+        out.append(((torch.logsumexp(sel, 2) - torch.log(torch.tensor(float(P)))) * cnt).sum(1))
+    return torch.stack(out)
+
+
+def phase_e(device):
+    """K2 vs plain on the card, same pinned noise: panels over 12 SNVs
+    (distinct haplotypes, reads decide), over 3 SNVs (haplotypes
+    repeat, so the chains keep moving between equal candidates), and
+    over 12 SNVs with per-problem panels of 16, 13 and 7 haplotypes
+    padded with MIN_LOG columns, as ``fit_calling_multi`` pads them."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_calling as KC
+
+    P, H, R, S, C, STEPS = 4, 16, 64, 16, 1024, 300
+    worst = 0.0
+    for NB, nv in ((12, None), (3, None), (12, (H, H - 3, H - 9))):
+        rng = np.random.default_rng(5 + NB + (nv is not None))
+        rh, counts, n_valid, prob = _calling_inputs(
+            rng, S, P, H, R, C, device, NB=NB, n_valid=nv
+        )
+        label = f"NB={NB}" + ("" if nv is None else ", n_valid " + "/".join(map(str, nv)))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(NB)
+        noise = torch.rand((STEPS, P, H, C), generator=gen, device=device).clamp_(min=1e-12)
+        kw = dict(n_steps=STEPS, ploidy=P, noise=noise)
+        g_k, l_k = KC.calling_sampler(rh, counts, n_valid, prob, **kw)
+        g_p, l_p = KC.calling_sampler_plain(rh, counts, n_valid, prob, **kw)
+        torch.cuda.synchronize()
+        same = (g_k == g_p).all(dim=0).all(dim=0)
+        frac = same.float().mean().item()
+        err = (l_k - l_p).abs()[:, same].max().item()
+        rec = _calling_recompute(g_k, rh, counts, prob, P)
+        rec_err = (rec - l_k.double()).abs().max().item()
+        moved = (g_k[1:] != g_k[:-1]).any(dim=1).float().mean().item()
+        padded = (g_k.long() >= n_valid[prob.long()].long()).sum().item()
+        print(
+            f"phase E ({label}): K2 identical chains {frac:.4f} of {C} over"
+            f" {STEPS} steps (P{P} H{H} R{R}, {S} problems); llk"
+            f" |kernel-plain| on them {err:.3g} (bound 1e-3); llk vs f64"
+            f" recompute {rec_err:.3g} (bound 1e-2); steps that changed the"
+            f" genotype {moved:.3f}; padding alleles drawn {padded}",
+            flush=True,
+        )
+        if frac < 0.99 or err > 1e-3 or rec_err > 1e-2 or padded:
+            _fail(f"phase E ({label})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_f(device):
+    """K2 with in-kernel Philox vs exact enumeration (TV < 0.03) on the
+    problem of scripts/gate_pallas_calling.py."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.numerics.combinadics import genotype_alleles_as_index
+    from mchap_tpu_torch.ops import cuda_calling as KC
+    from mchap_tpu_torch.ops import exact
+    from mchap_tpu_torch.ops.likelihood import prepare_reads, read_hap_loglik
+    from mchap_tpu_torch.testing import simulate_reads
+
+    P = 4
+    panel = np.array([[0, 0, 0], [0, 1, 1], [1, 1, 0], [1, 1, 1]], np.int8)
+    reads = simulate_reads(panel[[0, 1, 1, 3]], n_alleles=2, n_reads=8,
+                           errors=False, uniform_sample=True, qual=(20, 20), seed=7)
+    want = exact.genotype_posteriors(exact.genotype_likelihoods(reads, P, panel)).numpy()
+    C, STEPS, BURN = 1024, 3000, 500
+    rh = read_hap_loglik(prepare_reads(reads), panel).float()[None].to(device)
+    g, _ = KC.calling_sampler(
+        rh.contiguous(), torch.ones((1, rh.shape[1]), device=device),
+        torch.tensor([len(panel)], dtype=torch.int32, device=device),
+        torch.zeros(C, dtype=torch.int32, device=device),
+        n_steps=STEPS, ploidy=P, seed=13,
+    )
+    flat = g[BURN:].permute(0, 2, 1).reshape(-1, P).long().cpu().numpy()
+    got = np.bincount(genotype_alleles_as_index(flat), minlength=len(want)) / len(flat)
+    tv = 0.5 * np.abs(got - want).sum()
+    print(f"phase F: TV(K2, exact) = {tv:.4f} (bound 0.03)", flush=True)
+    if not tv < 0.03:
+        _fail("phase F")
+    return tv
+
+
+def phase_g(device, data, extra=()):
+    """``mchap call`` at default settings through the CLI entry point:
+    phase C's reads, with phase C's output VCF as the haplotype panel
+    (MCHap's documented two-step workflow)."""
+    from test_torch_fixtures import parse_vcf_records
+
+    n_loci = 20
+    argv = [
+        "mchap", "call", "--bam", *data["bams"], "--ploidy", "4",
+        "--haplotypes", str(data["assembled"]), "--reference", data["reference"],
+        *extra,
+    ]
+    rc, vcf, wall, launches, timers = _run_cli(argv)
+    (WORK / "assemble" / "call.vcf").write_text(vcf)
+    records = parse_vcf_records(vcf)
+    agree, total = _truth_agreement(records, data["truth"])
+    frac = agree / max(total, 1)
+    incomplete = sum(
+        "." in c["GT"]
+        for rec in records if rec["FILTER"] == "PASS"
+        for c in rec["calls"].values()
+    )
+    k2 = launches["calling_sampler"]
+    print(
+        f"phase G: call exit {rc}, {len(records)} records, K2 launches {k2},"
+        f" GT with '.' in PASS records {incomplete}, GT == truth"
+        f" {agree}/{total} = {frac:.4f} (bound 0.90); wall {wall:.2f} s ="
+        f" {n_loci / wall:.3f} loci/s",
+        flush=True,
+    )
+    for line in timers.summary_lines():
+        print("phase G timing:", line, flush=True)
+    if (rc != 0 or len(records) != n_loci or k2 < 1 or incomplete
+            or total != 440 or frac < 0.90):
+        _fail("phase G")
+    return launches
+
+
+def phase_h(device, card):
+    """K2 and plain throughput at the calling bench shape."""
+    import numpy as np
+
+    from mchap_tpu_torch.ops import cuda_calling as KC
+
+    P, H, R, S, C, STEPS = 4, 16, 64, 64, 65536, 500
+    rng = np.random.default_rng(11)
+    args = _calling_inputs(rng, S, P, H, R, C, device)
+    KC.calling_sampler(*args, n_steps=2, ploidy=P)  # warm-up
+    k_ms = _time_cuda(lambda: KC.calling_sampler(*args, n_steps=STEPS, ploidy=P, seed=3), 3)
+    plain_steps = 5
+    KC.calling_sampler_plain(*args, n_steps=1, ploidy=P)
+    p_ms = _time_cuda(
+        lambda: KC.calling_sampler_plain(*args, n_steps=plain_steps, ploidy=P, seed=3), 1
+    )
+    work = _calling_work(P, R, H, S, C, STEPS)
+    bound_ms, bound_by = _bound(work, card)
+    print(
+        f"phase H: K2 {C} chains P{P} R{R} H{H} over {S} problems: kernel"
+        f" {k_ms:.1f} ms for {STEPS} steps = {C * STEPS / (k_ms / 1e3):.4g}"
+        f" chain-steps/s; plain {p_ms:.1f} ms for {plain_steps} steps ="
+        f" {C * plain_steps / (p_ms / 1e3):.4g} chain-steps/s; bound"
+        f" {bound_ms:.3f} ms by {bound_by} ({work['flops']:.3g} flops,"
+        f" {work['transcendentals']:.3g} exp/log, {work['bytes']:.3g} bytes),"
+        f" kernel at {bound_ms / k_ms:.2%} of it",
+        flush=True,
+    )
+    return dict(ms=k_ms / STEPS, plain_ms=p_ms / plain_steps,
+                bound_ms=bound_ms / STEPS, bound_by=bound_by)
+
+
+def _mutation_inputs(rng, P, NB, A, R, C, device):
+    """K0's inputs in the JAX layout (chains last), with each chain's
+    current llk recomputed from its genotype."""
+    import numpy as np
+    import torch
+
+    S = 16
+    lr = _problems(rng, S, P, NB, A, R)  # [S, NB, A, R]
+    prob = np.arange(C) % S
+    lr_cl = np.ascontiguousarray(lr[prob].transpose(3, 1, 2, 0))  # [R, NB, A, C]
+    g = rng.integers(0, A, size=(P, NB, C))
+    onehot = np.ascontiguousarray(np.eye(A, dtype=np.float32)[g].transpose(0, 1, 3, 2))
+    counts = np.ones((R, C), np.float32)
+    rows = np.take_along_axis(lr_cl[None], g[:, None, :, None, :], axis=3)[:, :, :, 0]
+    rows = rows.astype(np.float64).sum(axis=2)  # [P, R, C]
+    m = rows.max(axis=0)
+    llk = (m + np.log(np.exp(rows - m).sum(axis=0)) - np.log(P)).sum(axis=0)
+    nall = np.full(NB, A, np.int32)
+    return [
+        torch.from_numpy(x).to(device)
+        for x in (nall, lr_cl, counts, onehot, llk.astype(np.float32))
+    ]
+
+
+def phase_i(device, card):
+    """K0 vs plain on the card with pinned noise, then one sweep timed."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_denovo as K
+
+    P, NB, R, TEMP = 4, 16, 64, 0.5
+    worst = 0.0
+    for A in (2, 3):
+        C = 1024
+        args = _mutation_inputs(np.random.default_rng(30 + A), P, NB, A, R, C, device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(A)
+        noise = torch.rand((P * NB, C), generator=gen, device=device).clamp_(min=1e-12)
+        g_k, rh_k, l_k = K.mutation_sweep(0, *args, TEMP, noise=noise)
+        g_p, rh_p, l_p = K.mutation_sweep_plain(0, *args, TEMP, noise=noise)
+        torch.cuda.synchronize()
+        same = (g_k == g_p).flatten(0, 2).all(dim=0)
+        frac = same.float().mean().item()
+        err = max(
+            (rh_k - rh_p).abs()[:, :, same].max().item(),
+            (l_k - l_p).abs()[same].max().item(),
+        )
+        moved = (g_k != args[3]).flatten(0, 2).any(dim=0).float().mean().item()
+        print(
+            f"phase I (A={A}): K0 identical genotypes {frac:.4f} of {C} chains"
+            f" (P{P} NB{NB} R{R}, temp {TEMP}); rh/llk |kernel-plain| on them"
+            f" {err:.3g} (bound 1e-3); chains that moved {moved:.3f}",
+            flush=True,
+        )
+        if frac < 0.99 or err > 1e-3:
+            _fail(f"phase I (A={A})")
+        worst = max(worst, err)
+    A, C = 2, 16384
+    args = _mutation_inputs(np.random.default_rng(40), P, NB, A, R, C, device)
+    K.mutation_sweep(1, *args, TEMP)  # warm-up
+    k_ms = _time_cuda(lambda: K.mutation_sweep(1, *args, TEMP), 10)
+    K.mutation_sweep_plain(1, *args, TEMP)
+    p_ms = _time_cuda(lambda: K.mutation_sweep_plain(1, *args, TEMP), 1)
+    work = _mutation_work(P, NB, A, R, C)
+    bound_ms, bound_by = _bound(work, card)
+    print(
+        f"phase I: K0 one sweep of {C} chains P{P} NB{NB} A{A} R{R}: kernel"
+        f" {k_ms:.3f} ms (layout changes included), plain {p_ms:.1f} ms; bound"
+        f" {bound_ms:.4f} ms by {bound_by}, kernel at {bound_ms / k_ms:.2%} of it",
+        flush=True,
+    )
+    return worst, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _card():
+    """Name and power limit line, SM count and special-function rate."""
+    import torch
+
+    line = _card_line()
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(line=line, sms=sms, sfu_rate=16 * sms * float(clock) * 1e6,
+                clock_mhz=float(clock))
+
+
+def _build_all():
+    """Build both kernel libraries at once (one nvcc each), then print
+    each build's time and ptxas's register lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mchap_tpu_torch.ops import cuda_calling as KC
+    from mchap_tpu_torch.ops import cuda_denovo as K
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.load_library()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        times = list(pool.map(timed, (K, KC)))
+    for name, mod, t in (("K1/K0", K, times[0]), ("K2", KC, times[1])):
+        print(f"build: {name} built and loaded in {t:.1f} s", flush=True)
+        for line in mod.build_log_path().read_text().splitlines():
+            if "Used" in line and "registers" in line:
+                print(f"ptxas ({name}):", line.split("info    :")[-1].strip())
 
 
 def main():
@@ -288,32 +696,58 @@ def main():
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false; this script needs a GPU")
     sys.path.insert(0, str(ROOT))
-    from mchap_tpu_torch.ops import cuda_denovo as K
+    sys.path.insert(0, str(ROOT / "tests"))
 
     device = torch.device("cuda", 0)
-    print(_card_line(), flush=True)
+    card = _card()
+    print(card["line"], flush=True)
+    print(
+        f"card: {card['sms']} SMs, max SM clock {card['clock_mhz']:.0f} MHz,"
+        f" special-function rate {card['sfu_rate']:.4g}/s",
+        flush=True,
+    )
     t0 = time.perf_counter()
-    K.load_library()
-    print(f"build: K1 built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in K.build_log_path().read_text().splitlines():
-        if "Used" in line and "registers" in line:
-            print("ptxas:", line.split("info    :")[-1].strip())
+    _build_all()
+    print(f"time: build {time.perf_counter() - t0:.1f} s", flush=True)
 
-    err_a = phase_a(device)
-    phase_b(device)
-    launches = phase_c(device)
-    ms_step, plain_ms_step = phase_d(device)
+    results = {}
+    runners = [
+        ("A", lambda: phase_a(device)),
+        ("B", lambda: phase_b(device)),
+        ("C", lambda: phase_c(device)),
+        ("D", lambda: phase_d(device, card)),
+        ("E", lambda: phase_e(device)),
+        ("F", lambda: phase_f(device)),
+        ("G", lambda: phase_g(device, results["C"][1])),
+        ("H", lambda: phase_h(device, card)),
+        ("I", lambda: phase_i(device, card)),
+    ]
+    for name, run in runners:
+        t = time.perf_counter()
+        results[name] = run()
+        print(f"time: phase {name} {time.perf_counter() - t:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "denovo_sampler",
-        "route": "cuda",
-        "source": "mchap_tpu_torch/csrc/denovo_sampler.cu",
-        "replaces": "mchap_tpu/ops/pallas_denovo.py:270",
-        "launches": launches,
-        "max_abs_err": err_a,
-        "ms": ms_step,
-        "plain_ms": plain_ms_step,
-    }]}))
+    torch.cuda.synchronize()
+    main_paths = (results["C"][0], results["G"])
+    err_i, i = results["I"]
+    kernels = [
+        dict(name="denovo_sampler", source="mchap_tpu_torch/csrc/denovo_sampler.cu",
+             replaces="mchap_tpu/ops/pallas_denovo.py:270",
+             launches=main_paths[0]["denovo_sampler"], max_abs_err=results["A"],
+             **results["D"]),
+        dict(name="calling_sampler", source="mchap_tpu_torch/csrc/calling_sampler.cu",
+             replaces="mchap_tpu/ops/pallas_calling.py:55",
+             launches=main_paths[1]["calling_sampler"], max_abs_err=results["E"],
+             **results["H"]),
+        dict(name="mutation_sweep", source="mchap_tpu_torch/csrc/denovo_sampler.cu",
+             replaces="mchap_tpu/ops/pallas_denovo.py:76",
+             launches=sum(p["mutation_sweep"] for p in main_paths),
+             max_abs_err=err_i, **i),
+    ]
+    for k in kernels:
+        k["route"] = "cuda"
+        k["library_ms"] = None  # no single PyTorch call computes a sampler step
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

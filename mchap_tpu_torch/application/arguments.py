@@ -1,6 +1,6 @@
-"""CLI flag definitions and argument collectors for ``assemble``.
+"""CLI flag definitions and argument collectors for ``assemble`` and ``call``.
 
-Port of the assemble part of ``mchap_tpu/application/arguments.py``.
+Port of the assemble and call parts of ``mchap_tpu/application/arguments.py``.
 Mirrors the flag surface of reference ``mchap/application/arguments.py``
 (same flag names, arities, and defaults — see docs/cli-*-help.txt in the
 reference), including the recurring convention that every per-sample
@@ -54,6 +54,10 @@ def _p(cli, **kwargs):
     return Parameter(cli, kwargs)
 
 
+haplotypes = _p(
+    "--haplotypes", type=str, nargs=1, default=[None],
+    help="VCF file of known haplotype/MNP/SNP variants to re-call among input samples.",
+)
 region = _p(
     "--region", type=str, nargs=1, default=[None],
     help="Single target region 'contig:start-stop' (one output variant); "
@@ -87,6 +91,12 @@ ploidy = _p(
     help="Sample ploidy (default = 2): one integer for all samples or a "
     "sample<TAB>ploidy file.",
 )
+dirmul_prior = _p(
+    "--use-dirmul-prior", type=str, nargs=2, default=[None, None],
+    help="Dirichlet-multinomial prior: (1) inbreeding coefficient (value in "
+    "[0,1] or sample<TAB>value file) and (2) INFO field of length 'R' "
+    "holding prior allele frequencies (normalized automatically).",
+)
 assembly_dirmul_prior = _p(
     "--use-dirmul-prior", type=str, nargs=1, default=[None],
     help="(Not recommended; backwards compatibility.) Replace the flat "
@@ -118,6 +128,11 @@ haplotype_posterior_threshold = _p(
     help="Posterior probability (of occurring with one or more copies in any "
     "individual) required to report a haplotype as an alternate allele "
     "(default = 0.20).",
+)
+filter_input_haplotypes = _p(
+    "--filter-input-haplotypes", type=str, nargs=1, default=[None],
+    help="Filter input haplotypes with '<field><operator><value>' where "
+    "<field> is a numerical INFO field of length 'A' or 'R'.",
 )
 _optional_field_descriptions = [
     "INFO/{} = {}".format(f.id, f.descr) for f in VCF.INFO_OPTIONAL_FIELDS
@@ -226,7 +241,9 @@ device = _p(
 )
 
 SAMPLE_FLATPRIOR_ARGUMENTS = [bam, ploidy, sample_pool]
+SAMPLE_DIRMUL_ARGUMENTS = [bam, ploidy, dirmul_prior, sample_pool]
 LOCI_DENOVO_ARGUMENTS = [reference, region, region_id, targets, variants]
+LOCI_KNOWN_ARGUMENTS = [reference, haplotypes, filter_input_haplotypes]
 READ_ENCODING_ARGUMENTS = [
     base_error_rate,
     ignore_base_phred_scores,
@@ -261,6 +278,15 @@ ASSEMBLE_MCMC_PARSER_ARGUMENTS = (
         mcmc_temperatures,
         haplotype_posterior_threshold,
     ]
+    + OUTPUT_ARGUMENTS
+    + CORES_ARGUMENTS
+)
+
+CALL_MCMC_PARSER_ARGUMENTS = (
+    SAMPLE_DIRMUL_ARGUMENTS
+    + LOCI_KNOWN_ARGUMENTS
+    + READ_ENCODING_ARGUMENTS
+    + MCMC_ARGUMENTS
     + OUTPUT_ARGUMENTS
     + CORES_ARGUMENTS
 )
@@ -412,7 +438,7 @@ def parse_report_fields(report_argument):
     return info_fields, format_fields
 
 
-def collect_default_program_arguments(arguments):
+def collect_default_program_arguments(arguments, skip_inbreeding=False):
     if arguments.ignore_base_phred_scores and arguments.base_error_rate[0] == 0.0:
         raise ValueError("Cannot ignore base phred scores if --base-error-rate is 0")
     samples, sample_bams = parse_sample_bam_paths(
@@ -422,7 +448,7 @@ def collect_default_program_arguments(arguments):
         reference_path=arguments.reference[0],
     )
     sample_ploidy = parse_sample_value_map(arguments.ploidy[0], samples, type=int)
-    if arguments.use_dirmul_prior[0] is None:
+    if skip_inbreeding or arguments.use_dirmul_prior[0] is None:
         sample_inbreeding = None
     else:
         sample_inbreeding = parse_sample_value_map(
@@ -458,6 +484,15 @@ def collect_default_mcmc_program_arguments(arguments):
         mcmc_incongruence_threshold=arguments.mcmc_chain_incongruence_threshold[0],
         random_seed=arguments.mcmc_seed[0],
     )
+
+
+def collect_call_mcmc_program_arguments(arguments):
+    data = collect_default_program_arguments(arguments)
+    data.update(collect_default_mcmc_program_arguments(arguments))
+    data["vcf"] = arguments.haplotypes[0]
+    data["prior_frequencies_tag"] = arguments.use_dirmul_prior[1]
+    data["filter_input_haplotypes"] = arguments.filter_input_haplotypes[0]
+    return data
 
 
 def collect_assemble_mcmc_program_arguments(arguments):

@@ -1,4 +1,4 @@
-"""CLI dispatch: ``mchap assemble``.
+"""CLI dispatch: ``mchap {assemble,call}``.
 
 Reference: mchap/application/cli.py.  The other ``mchap`` tools of
 ``mchap_tpu`` are not ported yet and exit with an error.
@@ -6,8 +6,8 @@ Reference: mchap/application/cli.py.  The other ``mchap`` tools of
 
 import sys
 
-TOOLS = ["assemble"]
-NOT_PORTED = ["call", "call-exact", "call-pedigree", "find-snvs", "atomize"]
+TOOLS = ["assemble", "call"]
+NOT_PORTED = ["call-exact", "call-pedigree", "find-snvs", "atomize"]
 
 
 def main(command=None):
@@ -16,25 +16,27 @@ def main(command=None):
     usage = "usage: mchap [-h] {" + ",".join(TOOLS) + "} ..."
     if len(command) < 2 or command[1] in {"-h", "--help"}:
         print(usage)
-        print("\nMicro-haplotype assembly (PyTorch/CUDA port)")
+        print("\nMicro-haplotype assembly and genotype calling (PyTorch/CUDA port)")
         return 0
     tool = command[1]
     if tool == "assemble":
         from mchap_tpu_torch.application.assemble import program
-
-        prog = program.cli(command)
-        prog.run_stdout()
-        return 0
-    print(usage, file=sys.stderr)
-    if tool in NOT_PORTED:
-        print(
-            f"error: '{tool}' is not ported yet (see ROADMAP.md);"
-            " run it with mchap_tpu",
-            file=sys.stderr,
-        )
+    elif tool == "call":
+        from mchap_tpu_torch.application.call import program
     else:
-        print(f"error: unknown tool '{tool}'", file=sys.stderr)
-    return 2
+        print(usage, file=sys.stderr)
+        if tool in NOT_PORTED:
+            print(
+                f"error: '{tool}' is not ported yet (see ROADMAP.md);"
+                " run it with mchap_tpu",
+                file=sys.stderr,
+            )
+        else:
+            print(f"error: unknown tool '{tool}'", file=sys.stderr)
+        return 2
+    prog = program.cli(command)
+    prog.run_stdout()
+    return 0
 
 
 if __name__ == "__main__":

@@ -10,6 +10,12 @@
 // PyTorch version is mchap_tpu_torch/ops/cuda_denovo.py::
 // denovo_sampler_plain, which consumes uniform draws in the same order.
 //
+// A second entry, mutation_sweep_launch, is K0: it replaces
+// mchap_tpu/ops/pallas_denovo.py::pallas_mutation_sweep (body _make_kernel)
+// with one call of the same mutation-sweep device code at an inverse
+// temperature, starting from a given llk (plain version:
+// cuda_denovo.py::mutation_sweep_plain).  K1 runs that code at temp = 1.
+//
 // What bounds it on this card: each chain is a long sequence of dependent
 // MH decisions, and every decision waits on a sum over reads (R = 64 at
 // typical depth) of logaddexp terms.  The work is latency of those
@@ -143,8 +149,14 @@ __device__ void rebuild_rh(const Chain& ch) {
 // mutation sweep
 // ---------------------------------------------------------------------------
 
+// One sweep at inverse temperature temp: each MH ratio is
+// (llk' - llk) * temp + log proposal ratio, with the product and sum
+// rounded separately (no FMA), as the plain version computes them.  K1
+// passes temp = 1, where x * 1 is exact, so its chain is the same as
+// without the factor.
 template <int P>
-__device__ float mutation_sweep(const Chain& ch, int step, float llk, float log_p) {
+__device__ float mutation_sweep(const Chain& ch, int step, float llk, float log_p,
+                                float temp) {
   const Params& p = *ch.p;
   const int R = p.R, NB = p.NB, A = p.A;
   float* rest = ch.rhi;  // rhi row 0 is free during the mutation sweep
@@ -207,7 +219,8 @@ __device__ float mutation_sweep(const Chain& ch, int step, float llk, float log_
             if (eqj[h2]) count_cur += 1.f; else count_alt += 1.f;
           }
         }
-        const float mh = ((llk_alt - llk) + logf(count_alt)) - logf(count_cur);
+        const float mh =
+            __fadd_rn(__fmul_rn(llk_alt - llk, temp), logf(count_alt)) - logf(count_cur);
         const float p_acc = nall_j > 1 ? expf(fminf(0.f, mh)) : 0.f;
         if (u < p_acc) {
           moved = true;
@@ -240,7 +253,8 @@ __device__ float mutation_sweep(const Chain& ch, int step, float llk, float log_
 #pragma unroll
           for (int h2 = 0; h2 < P; ++h2)
             if (eq_ex[h2] && colv[h2] == a) count_a += 1.f;
-          const float mh = ((llk_a - llk) + logf(count_a)) - logf(count_cur);
+          const float mh =
+              __fadd_rn(__fmul_rn(llk_a - llk, temp), logf(count_a)) - logf(count_cur);
           acc += expf(fminf(0.f, mh)) / n_opt1;
           if (chosen < 0 && acc > u) { chosen = a; chosen_llk = llk_a; }
         }
@@ -471,13 +485,10 @@ __device__ float structural_mh(const Chain& ch, int seg_id, int len_in, bool gat
   return chosen_llk;
 }
 
+// Chain c's view of its problem and of its warp's shared memory, with
+// the genotype loaded from g_init.
 template <int P>
-__global__ void __launch_bounds__(128) denovo_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * p.warps + warp;
-  if (c >= p.C) return;  // whole warp leaves; there are no block barriers
-
+__device__ Chain load_chain(const Params& p, unsigned char* smem, int warp, int c) {
   unsigned char* base = smem + (size_t)warp * p.smem_bytes;
   Chain ch;
   ch.p = &p;
@@ -492,14 +503,25 @@ __global__ void __launch_bounds__(128) denovo_kernel(Params p) {
   ch.rhi = ch.rh + P * R;
   ch.g = reinterpret_cast<int8_t*>(ch.rh + p.smem_floats);
   ch.seg = ch.g + P * NB;
+  for (int i = ch.lane; i < P * NB; i += 32)
+    ch.g[i] = (int8_t)p.g_init[(size_t)i * p.C + c];
+  __syncwarp();
+  return ch;
+}
+
+template <int P>
+__global__ void __launch_bounds__(128) denovo_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * p.warps + warp;
+  if (c >= p.C) return;  // whole warp leaves; there are no block barriers
+
+  const Chain ch = load_chain<P>(p, smem, warp, c);
+  const int R = p.R, NB = p.NB, A = p.A;
   const float pb = __ldg(p.pbreak + ch.s);
   const float log_p = logf((float)P);
   int basev = 2;  // packing radix next_pow2(max(A, 2))
   while (basev < A) basev <<= 1;
-
-  for (int i = ch.lane; i < P * NB; i += 32)
-    ch.g[i] = (int8_t)p.g_init[(size_t)i * p.C + c];
-  __syncwarp();
 
   const int brk0 = P * NB + 2;
   const int seg0 = brk0 + NB - 1;
@@ -511,7 +533,7 @@ __global__ void __launch_bounds__(128) denovo_kernel(Params p) {
       rebuild_rh<P>(ch);
       llk = full_llk<P>(ch, log_p);
     }
-    llk = mutation_sweep<P>(ch, step, llk, log_p);
+    llk = mutation_sweep<P>(ch, step, llk, log_p, 1.f);
 
     if constexpr (P > 1) {
     if (p.stage >= 2) {
@@ -586,6 +608,42 @@ cudaError_t launch_p(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K0: one mutation sweep at inverse temperature temp from a given llk
+// (replaces mchap_tpu/ops/pallas_denovo.py::pallas_mutation_sweep, body
+// _make_kernel).  rh is rebuilt from the genotype, the sweep is K1's, and
+// the genotype, rh and llk are written out.
+template <int P>
+__global__ void __launch_bounds__(128) mutation_kernel(Params p, const float* llk_in,
+                                                       float temp, int* g_out,
+                                                       float* rh_out, float* llk_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * p.warps + warp;
+  if (c >= p.C) return;
+
+  const Chain ch = load_chain<P>(p, smem, warp, c);
+  const int R = p.R, NB = p.NB;
+  rebuild_rh<P>(ch);
+  const float llk = mutation_sweep<P>(ch, 0, llk_in[c], logf((float)P), temp);
+  __syncwarp();
+  for (int i = ch.lane; i < P * NB; i += 32) g_out[(size_t)i * p.C + c] = ch.g[i];
+  for (int i = ch.lane; i < P * R; i += 32) rh_out[(size_t)i * p.C + c] = ch.rh[i];
+  if (ch.lane == 0) llk_out[c] = llk;
+}
+
+template <int P>
+cudaError_t launch_mutation(const Params& p, const float* llk_in, float temp, int* g_out,
+                            float* rh_out, float* llk_out, cudaStream_t stream) {
+  const size_t smem = (size_t)p.smem_bytes * p.warps;
+  cudaError_t err = cudaFuncSetAttribute(
+      mutation_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.C + p.warps - 1) / p.warps;
+  mutation_kernel<P><<<blocks, 32 * p.warps, smem, stream>>>(p, llk_in, temp, g_out,
+                                                              rh_out, llk_out);
+  return cudaGetLastError();
+}
+
 int smem_floats_for(int P, int R) { return ((2 * P * R) + 3) / 4 * 4; }
 
 }  // namespace
@@ -639,6 +697,46 @@ int denovo_sampler_launch(const void* lr, const void* counts, const void* nall,
     case 6: return launch_p<6>(p, s);
     case 7: return launch_p<7>(p, s);
     case 8: return launch_p<8>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K0 entry: lr [S][NB][A][R], counts [S][R], nall [S][NB], problem [C],
+// g_init [P][NB][C], llk_in [C], noise [P*NB][C] or null; writes g_out
+// [P][NB][C], rh_out [P][R][C] and llk_out [C].
+int mutation_sweep_launch(const void* lr, const void* counts, const void* nall,
+                          const void* problem, const void* g_init, const void* noise,
+                          const void* llk_in, void* g_out, void* rh_out, void* llk_out,
+                          int S, int R, int NB, int A, int P, int C, float temp,
+                          uint64_t seed, int warps, void* stream) {
+  Params p = {};
+  p.lr = static_cast<const float*>(lr);
+  p.counts = static_cast<const float*>(counts);
+  p.nall = static_cast<const int*>(nall);
+  p.problem = static_cast<const int*>(problem);
+  p.g_init = static_cast<const int*>(g_init);
+  p.noise = static_cast<const float*>(noise);
+  p.S = S; p.R = R; p.NB = NB; p.A = A; p.C = C; p.n_steps = 1;
+  p.seed = seed;
+  p.warps = warps;
+  p.D = P * NB;  // the sweep's draws: site (h, j) -> h * NB + j
+  p.smem_floats = smem_floats_for(P, R);
+  p.smem_bytes = (int)denovo_sampler_smem_bytes(P, R, NB);
+  if (C == 0) return cudaSuccess;
+  const float* li = static_cast<const float*>(llk_in);
+  int* go = static_cast<int*>(g_out);
+  float* ro = static_cast<float*>(rh_out);
+  float* lo = static_cast<float*>(llk_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (P) {
+    case 1: return launch_mutation<1>(p, li, temp, go, ro, lo, s);
+    case 2: return launch_mutation<2>(p, li, temp, go, ro, lo, s);
+    case 3: return launch_mutation<3>(p, li, temp, go, ro, lo, s);
+    case 4: return launch_mutation<4>(p, li, temp, go, ro, lo, s);
+    case 5: return launch_mutation<5>(p, li, temp, go, ro, lo, s);
+    case 6: return launch_mutation<6>(p, li, temp, go, ro, lo, s);
+    case 7: return launch_mutation<7>(p, li, temp, go, ro, lo, s);
+    case 8: return launch_mutation<8>(p, li, temp, go, ro, lo, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -34,7 +34,7 @@ from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.device import resolve_device
 
-_TEMPERING = "K1 tempering and DM prior (ROADMAP queue 4, item 1)"
+_TEMPERING = "K1 tempering and DM prior (ROADMAP queue 4, item 3)"
 
 
 def _point_beta_probabilities(n_base, a=1, b=1):
@@ -65,16 +65,17 @@ def _read_mean_dist(reads):
     return dist / dist.sum(axis=-1, keepdims=True)
 
 
-def _pad_reads_bucket(reads_list, counts_list, min_bucket=8):
+def pad_reads_bucket(reads_list, counts_list, min_bucket=8, fill=np.nan):
     """Pad per-sample reads to a shared power-of-two read count; padded
-    reads are nan (log 1) with count 0, so they weigh nothing."""
+    reads are ``fill`` (nan, log 1, by default) with count 0, so they
+    weigh nothing."""
     max_r = max((len(r) for r in reads_list), default=0)
     bucket = min_bucket
     while bucket < max_r:
         bucket *= 2
     shape = reads_list[0].shape[1:]
     n = len(reads_list)
-    reads = np.full((n, bucket) + shape, np.nan)
+    reads = np.full((n, bucket) + shape, fill)
     counts = np.zeros((n, bucket))
     for i, (r, c) in enumerate(zip(reads_list, counts_list)):
         reads[i, : len(r)] = r
@@ -356,7 +357,7 @@ def fit_denovo_batch(
         r if len(r) else np.full((1,) + r.shape[1:], np.nan) for r in reads_list
     ]
     counts_list = [c if len(c) else np.ones(1) for c in counts_list]
-    reads, counts = _pad_reads_bucket(reads_list, counts_list)
+    reads, counts = pad_reads_bucket(reads_list, counts_list)
     n_alleles_mat = np.broadcast_to(n_alleles[None, :], (n_samples, n_pos)).copy()
     return _fit_denovo_core(
         reads, counts, n_alleles_mat, ploidy, inbreeding_list is not None,

@@ -1,8 +1,8 @@
 """VCF genotype-index combinadics and counting functions (numpy).
 
 Port of ``mchap_tpu/numerics/combinadics.py``, limited to what the
-assemble path uses.  Genotype tables are small and built once on the
-host, so exact int64 numpy arithmetic replaces the JAX versions.
+assemble and call paths use.  Genotype tables are small and built once
+on the host, so exact int64 numpy arithmetic replaces the JAX versions.
 """
 
 from functools import lru_cache
@@ -59,6 +59,45 @@ def enumerate_genotypes(n_alleles: int, ploidy: int) -> np.ndarray:
     return _genotype_table_cached(n_alleles, ploidy)
 
 
+def index_as_genotype_alleles_np(index: int, ploidy: int) -> np.ndarray:
+    """Inverse of ``genotype_alleles_as_index`` for one index.
+
+    Reference: ``jitutils.py:279-318``.  A negative index gives all -1.
+    """
+    out = np.full(ploidy, -2, np.int64)
+    if index < 0:
+        out[:] = -1
+        return out
+    remainder = int(index)
+    for slot in range(ploidy):
+        p = ploidy - slot
+        n = -1
+        new = 0
+        prev = 0
+        while new <= remainder:
+            n += 1
+            prev = new
+            new = math.comb(n + p - 1, p) if n > 0 else 0
+        n -= 1
+        remainder -= prev
+        out[p - 1] = n
+    return out
+
+
+def count_unique_haplotypes(u_alleles) -> int:
+    """Product of per-position allele counts; reference combinatorics.py:16-32."""
+    return int(np.prod(np.asarray(u_alleles, dtype=np.int64)))
+
+
 def count_unique_genotypes(u_haps: int, ploidy: int) -> int:
     """Multiset coefficient; reference combinatorics.py:35-54."""
     return math.comb(u_haps + ploidy - 1, ploidy)
+
+
+def count_genotype_permutations(dosage) -> int:
+    """Multinomial coefficient of a dosage; reference combinatorics.py:101-127."""
+    dosage = np.asarray(dosage)
+    denominator = 1
+    for d in dosage:
+        denominator *= math.factorial(int(d))
+    return math.factorial(int(dosage.sum())) // denominator

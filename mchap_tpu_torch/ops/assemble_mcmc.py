@@ -6,7 +6,7 @@ genotype posterior is computed on its own, and positions whose
 homozygous genotype reaches ``--mcmc-fix-homozygous`` are fixed.  The
 screen is host numpy (a few BLAS calls per block).  The
 Dirichlet-multinomial prior screen and the XLA sampler of that module
-are not ported yet (ROADMAP queue 4, item 1).
+are not ported yet (ROADMAP queue 4, item 3).
 """
 
 import numpy as np

@@ -30,23 +30,23 @@ probabilities, reads last), ``counts`` f32[S, R], ``nall`` i32[S, NB]
 maps each chain to its problem.  ``g_init`` is i32[P, NB, C].
 Outputs: the base-``next_pow2(A)`` packed trace [n_steps, NB, C]
 (uint8/int16/int32 by ``base**P``) and llks f32[n_steps, C].
+
+``mutation_sweep`` (K0, replacing ``pallas_mutation_sweep``) is a second
+entry into the same source: step 1 alone, once, at an inverse
+temperature, with ``mutation_sweep_plain`` beside it.
 """
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
+from mchap_tpu_torch.ops import nvcc_build
+
 NEG_BIG = -1e30
-_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "denovo_sampler.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".build" / "kernels"
-_MAX_SMEM = 227 * 1024  # bytes a block may use on Hopper (sm_90)
+_NAME = "denovo_sampler"
+_MAX_SMEM = nvcc_build.MAX_SMEM
 _WARPS_PER_BLOCK = 4
 
 
@@ -177,41 +177,20 @@ _lib_lock = threading.Lock()
 
 
 def build_log_path():
-    return _BUILD_DIR / "denovo_sampler.log"
+    return nvcc_build.log_path(_NAME)
 
 
 def load_library():
-    """Build (at first use) and load the kernel's shared library.
+    """Build (at first use) and load the shared library of K1 and K0.
 
     ``nvcc`` compiles ``csrc/denovo_sampler.cu`` for sm_90a into
-    ``.build/kernels/``; the file name carries a hash of the source, so
-    an edited source is rebuilt.  ptxas's resource report is kept in
-    ``build_log_path()``.  Raises if the build fails.
+    ``.build/kernels/`` (``nvcc_build``).  Raises if the build fails.
     """
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        source = _CSRC.read_bytes()
-        digest = hashlib.sha256(source).hexdigest()[:12]
-        lib_path = _BUILD_DIR / f"libdenovo_sampler_{digest}.so"
-        if not lib_path.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v", "-o", str(tmp), str(_CSRC),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log_path().write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-                )
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
+        lib = nvcc_build.build_library(_NAME)
         fn = lib.denovo_sampler_launch
         fn.restype = ctypes.c_int
         fn.argtypes = (
@@ -219,6 +198,16 @@ def load_library():
             + [ctypes.c_int] * 7  # S R NB A P C n_steps
             + [ctypes.c_float] * 3  # p_recomb p_partial p_full
             + [ctypes.c_int] * 3  # refresh stage out_bytes
+            + [ctypes.c_uint64]  # seed
+            + [ctypes.c_int]  # warps per block
+            + [ctypes.c_void_p]  # stream
+        )
+        fn = lib.mutation_sweep_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 10  # lr counts nall problem g0 noise llk g rh llk
+            + [ctypes.c_int] * 6  # S R NB A P C
+            + [ctypes.c_float]  # temp
             + [ctypes.c_uint64]  # seed
             + [ctypes.c_int]  # warps per block
             + [ctypes.c_void_p]  # stream
@@ -231,18 +220,22 @@ def load_library():
         return lib
 
 
-def _launch(lr, counts, g_init, nall, pbreak, problem, *, n_steps, p_recomb,
-            p_partial, p_full, refresh, stage, seed, noise):
-    S, NB, A, R = lr.shape
-    P, _, C = g_init.shape
-    lib = load_library()
+def _warps_per_block(lib, P, R, NB):
     per_warp = lib.denovo_sampler_smem_bytes(P, R, NB)
     if per_warp > _MAX_SMEM:
         raise ValueError(
             f"chain state needs {per_warp} bytes of shared memory"
             f" (P*R*8 = {P * R * 8}); at most {_MAX_SMEM} fit in one block"
         )
-    warps = max(1, min(_WARPS_PER_BLOCK, _MAX_SMEM // per_warp))
+    return max(1, min(_WARPS_PER_BLOCK, _MAX_SMEM // per_warp))
+
+
+def _launch(lr, counts, g_init, nall, pbreak, problem, *, n_steps, p_recomb,
+            p_partial, p_full, refresh, stage, seed, noise):
+    S, NB, A, R = lr.shape
+    P, _, C = g_init.shape
+    lib = load_library()
+    warps = _warps_per_block(lib, P, R, NB)
     dtype = trace_dtype(A, P)
     trace = torch.empty((n_steps, NB, C), dtype=dtype, device=lr.device)
     llks = torch.empty((n_steps, C), dtype=torch.float32, device=lr.device)
@@ -431,6 +424,110 @@ def _structural_mh(g, rh, rh_int, mask, llk, cnt, log_p, gate, u, kind,
     return llk, rh_int_new
 
 
+def _row_sums(g, lrc, mask=None):
+    """Sum over positions (in order) of lr at each row's allele,
+    restricted to ``mask`` [C, NB]: g [C, P, NB], lrc [C, NB, A, R] ->
+    [C, P, R]."""
+    C, P, NB = g.shape
+    A, R = lrc.shape[2:]
+    idx = g[:, :, :, None, None].expand(C, P, NB, 1, R)
+    src = lrc[:, None].expand(C, P, NB, A, R)
+    sel = torch.gather(src, 3, idx)[:, :, :, 0, :]  # [C, P, NB, R]
+    acc = torch.zeros((C, P, R), dtype=torch.float32, device=g.device)
+    for j in range(NB):
+        if mask is None:
+            acc = acc + sel[:, :, j]
+        else:
+            acc = torch.where(mask[:, j, None, None], acc + sel[:, :, j], acc)
+    return acc
+
+
+def _sel1(lr_j, val):
+    """lr_j [C, A, R] at allele val [C] -> [C, R]."""
+    C, _, R = lr_j.shape
+    return torch.gather(lr_j, 1, val[:, None, None].expand(C, 1, R))[:, 0]
+
+
+def _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p, temp=1.0):
+    """One MH mutation sweep of every chain in systematic h-major site
+    order, at inverse temperature ``temp``.
+
+    g [C, P, NB] long and rh [C, P, R] are updated in place; uni holds
+    site (h, j)'s draw in row h * NB + j.  Returns the new llk [C].
+    """
+    C, P, NB = g.shape
+    A, R = lrc.shape[2:]
+    device = g.device
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    ar_p = torch.arange(P, device=device)
+    ar_a = torch.arange(A, device=device)
+    for h in range(P):
+        others = [rh[:, i] for i in range(P) if i != h]
+        if others:
+            rest = _lse_rows(others)
+        else:
+            rest = torch.full((C, R), NEG_BIG, device=device)
+        d = (g == g[:, h : h + 1]).sum(dim=2)  # [C, P] row matches
+        other = ar_p != h
+        for j in range(NB):
+            cur = g[:, h, j]
+            lr_j = lrc[:, j]  # [C, A, R]
+            lr_cur = _sel1(lr_j, cur)
+            b = rh[:, h] - lr_cur
+            nall_j = nallc[:, j]
+            colv = g[:, :, j]  # [C, P]
+            eqj = colv == cur[:, None]
+            eq_ex = ((d - eqj.long()) >= NB - 1) & other
+            u = uni[h * NB + j]
+            if A == 2:
+                alt = 1 - cur
+                lr_alt = _sel1(lr_j, alt)
+                cand = torch.logaddexp(rest, b + lr_alt)
+                llk_alt = _read_sum(cnt * (cand - log_p))
+                count_cur = 1.0 + (eq_ex & eqj).sum(dim=1).float()
+                count_alt = 1.0 + (eq_ex & ~eqj).sum(dim=1).float()
+                mh = (llk_alt - llk) * temp + torch.log(count_alt) - torch.log(count_cur)
+                p_acc = torch.where(
+                    nall_j > 1, torch.exp(torch.clamp(mh, max=0.0)), zero
+                )
+                moved = u < p_acc
+                new = torch.where(moved, alt, cur)
+                lr_new = lr_alt
+                llk = torch.where(moved, llk_alt, llk)
+            else:
+                cand = torch.logaddexp(rest[:, None], b[:, None] + lr_j)
+                llk_a = _read_sum(cnt[:, None] * (cand - log_p))  # [C, A]
+                counts_a = 1.0 + (
+                    eq_ex[:, :, None] & (colv[:, :, None] == ar_a)
+                ).sum(dim=1).float()  # [C, A]
+                count_cur = counts_a.gather(1, cur[:, None])[:, 0]
+                valid = (
+                    (ar_a < nall_j[:, None])
+                    & (ar_a != cur[:, None])
+                    & (nall_j[:, None] > 1)
+                )
+                n_opt = torch.clamp(valid.sum(dim=1).float(), min=1.0)
+                mh = (llk_a - llk[:, None]) * temp + torch.log(counts_a) - torch.log(
+                    count_cur
+                )[:, None]
+                probs = torch.where(
+                    valid, torch.exp(torch.clamp(mh, max=0.0)) / n_opt[:, None],
+                    zero,
+                )
+                cdf = _seq_cumsum(probs)
+                chosen = (cdf <= u[:, None]).sum(dim=1).clamp(max=A - 1)
+                moved = u < cdf[:, -1]
+                new = torch.where(moved, chosen, cur)
+                lr_new = _sel1(lr_j, new)
+                llk = torch.where(moved, llk_a.gather(1, chosen[:, None])[:, 0], llk)
+            rh[:, h] = torch.where(moved[:, None], b + lr_new, rh[:, h])
+            d = d + (moved[:, None] & other) * (
+                (colv == new[:, None]).long() - eqj.long()
+            )
+            g[:, h, j] = new
+    return llk
+
+
 def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
                          n_steps, p_recomb=0.5, p_partial=0.5, p_full=1.0,
                          refresh=64, stage=3, seed=0, noise=None):
@@ -455,30 +552,9 @@ def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
     g = g_init.permute(2, 0, 1).long().contiguous()  # [C, P, NB]
     rh = torch.zeros((C, P, R), dtype=torch.float32, device=device)
     llk = torch.zeros(C, dtype=torch.float32, device=device)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    ar_p = torch.arange(P, device=device)
-    ar_a = torch.arange(A, device=device)
     trace = torch.empty((n_steps, NB, C), dtype=trace_dtype(A, P), device=device)
     llks = torch.empty((n_steps, C), dtype=torch.float32, device=device)
     weights = torch.tensor([base ** h for h in range(P)], device=device)
-
-    def row_sums(mask=None):
-        """sum over positions (in order) of lr at each row's allele,
-        restricted to ``mask`` [C, NB]: -> [C, P, R]."""
-        idx = g[:, :, :, None, None].expand(C, P, NB, 1, R)
-        src = lrc[:, None].expand(C, P, NB, A, R)
-        sel = torch.gather(src, 3, idx)[:, :, :, 0, :]  # [C, P, NB, R]
-        acc = torch.zeros((C, P, R), dtype=torch.float32, device=device)
-        for j in range(NB):
-            if mask is None:
-                acc = acc + sel[:, :, j]
-            else:
-                acc = torch.where(mask[:, j, None, None], acc + sel[:, :, j], acc)
-        return acc
-
-    def sel1(lr_j, val):
-        """lr_j [C, A, R] at allele val [C] -> [C, R]."""
-        return torch.gather(lr_j, 1, val[:, None, None].expand(C, 1, R))[:, 0]
 
     for step in range(n_steps):
         if noise is not None:
@@ -489,74 +565,11 @@ def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
             ).clamp_(min=1e-12)
 
         if step % refresh == 0:
-            rh = row_sums()
+            rh = _row_sums(g, lrc)
             llk = _read_sum(cnt * (_lse_rows([rh[:, h] for h in range(P)]) - log_p))
 
         # 1. mutation sweep, systematic h-major site order
-        for h in range(P):
-            others = [rh[:, i] for i in range(P) if i != h]
-            if others:
-                rest = _lse_rows(others)
-            else:
-                rest = torch.full((C, R), NEG_BIG, device=device)
-            d = (g == g[:, h : h + 1]).sum(dim=2)  # [C, P] row matches
-            other = ar_p != h
-            for j in range(NB):
-                cur = g[:, h, j]
-                lr_j = lrc[:, j]  # [C, A, R]
-                lr_cur = sel1(lr_j, cur)
-                b = rh[:, h] - lr_cur
-                nall_j = nallc[:, j]
-                colv = g[:, :, j]  # [C, P]
-                eqj = colv == cur[:, None]
-                eq_ex = ((d - eqj.long()) >= NB - 1) & other
-                u = uni[h * NB + j]
-                if A == 2:
-                    alt = 1 - cur
-                    lr_alt = sel1(lr_j, alt)
-                    cand = torch.logaddexp(rest, b + lr_alt)
-                    llk_alt = _read_sum(cnt * (cand - log_p))
-                    count_cur = 1.0 + (eq_ex & eqj).sum(dim=1).float()
-                    count_alt = 1.0 + (eq_ex & ~eqj).sum(dim=1).float()
-                    mh = (llk_alt - llk) + torch.log(count_alt) - torch.log(count_cur)
-                    p_acc = torch.where(
-                        nall_j > 1, torch.exp(torch.clamp(mh, max=0.0)), zero
-                    )
-                    moved = u < p_acc
-                    new = torch.where(moved, alt, cur)
-                    lr_new = lr_alt
-                    llk = torch.where(moved, llk_alt, llk)
-                else:
-                    cand = torch.logaddexp(rest[:, None], b[:, None] + lr_j)
-                    llk_a = _read_sum(cnt[:, None] * (cand - log_p))  # [C, A]
-                    counts_a = 1.0 + (
-                        eq_ex[:, :, None] & (colv[:, :, None] == ar_a)
-                    ).sum(dim=1).float()  # [C, A]
-                    count_cur = counts_a.gather(1, cur[:, None])[:, 0]
-                    valid = (
-                        (ar_a < nall_j[:, None])
-                        & (ar_a != cur[:, None])
-                        & (nall_j[:, None] > 1)
-                    )
-                    n_opt = torch.clamp(valid.sum(dim=1).float(), min=1.0)
-                    mh = (llk_a - llk[:, None]) + torch.log(counts_a) - torch.log(
-                        count_cur
-                    )[:, None]
-                    probs = torch.where(
-                        valid, torch.exp(torch.clamp(mh, max=0.0)) / n_opt[:, None],
-                        zero,
-                    )
-                    cdf = _seq_cumsum(probs)
-                    chosen = (cdf <= u[:, None]).sum(dim=1).clamp(max=A - 1)
-                    moved = u < cdf[:, -1]
-                    new = torch.where(moved, chosen, cur)
-                    lr_new = sel1(lr_j, new)
-                    llk = torch.where(moved, llk_a.gather(1, chosen[:, None])[:, 0], llk)
-                rh[:, h] = torch.where(moved[:, None], b + lr_new, rh[:, h])
-                d = d + (moved[:, None] & other) * (
-                    (colv == new[:, None]).long() - eqj.long()
-                )
-                g[:, h, j] = new
+        llk = _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p)
 
         # 2. fused recombination + partial-dosage sweep
         if stage >= 2 and P > 1:
@@ -570,7 +583,7 @@ def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
                 seg[:, j] = acc
             for i in range(maxseg):
                 mask = seg == i
-                rh_int = row_sums(mask)
+                rh_int = _row_sums(g, lrc, mask)
                 llk, rh_int = _structural_mh(
                     g, rh, rh_int, mask, llk, cnt, log_p, gate_r,
                     uni[lay["seg"] + 2 * i], 0, False,
@@ -594,3 +607,128 @@ def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
         llks[step] = llk
     return trace, llks
 
+
+
+# ---------------------------------------------------------------------------
+# K0: one mutation sweep (second entry of the same CUDA source)
+# ---------------------------------------------------------------------------
+
+
+def _mutation_layout(n_alleles, lr, counts, g_onehot, llk, noise):
+    """Check K0's inputs (JAX layout, chains last) and recast them as K1's
+    per-problem layout with one problem per chain."""
+    R, NB, A, C = lr.shape
+    P = g_onehot.shape[0]
+    expect = [
+        ("n_alleles", n_alleles, torch.int32, (NB,)),
+        ("counts", counts, torch.float32, (R, C)),
+        ("g_onehot", g_onehot, torch.float32, (P, NB, A, C)),
+        ("llk", llk, torch.float32, (C,)),
+    ]
+    if noise is not None:
+        expect.append(("noise", noise, torch.float32, (P * NB, C)))
+    if lr.dtype != torch.float32:
+        raise ValueError(f"lr must be torch.float32, got {lr.dtype}")
+    for name, t, dtype, shape in expect:
+        if t.device != lr.device:
+            raise ValueError(f"{name} is on {t.device}, lr on {lr.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not 1 <= P <= 8:
+        raise ValueError(f"ploidy {P} outside 1..8")
+    if A < 2:
+        raise ValueError("n_alleles must be >= 2")
+    return dict(
+        lr=lr.permute(3, 1, 2, 0).contiguous(),  # [C, NB, A, R]
+        counts=counts.T.contiguous(),  # [C, R]
+        nall=n_alleles[None].expand(C, NB).contiguous(),
+        problem=torch.arange(C, dtype=torch.int32, device=lr.device),
+        g=g_onehot.argmax(dim=2).to(torch.int32).contiguous(),  # [P, NB, C]
+        llk=llk.contiguous(),
+        noise=None if noise is None else noise.contiguous(),
+    )
+
+
+def _as_onehot(g, n_alleles):
+    """int genotypes [P, NB, C] -> f32 one-hot [P, NB, A, C]."""
+    onehot = torch.nn.functional.one_hot(g.long(), n_alleles)  # [P, NB, C, A]
+    return onehot.permute(0, 1, 3, 2).to(torch.float32).contiguous()
+
+
+def mutation_sweep(seed, n_alleles, lr, counts, g_onehot, llk, temp, *, noise=None):
+    """K0: one MH mutation sweep for many chains at inverse temperature
+    ``temp``, starting from the given ``llk``.
+
+    The argument list and layout are those of
+    ``mchap_tpu/ops/pallas_denovo.py::pallas_mutation_sweep``:
+    ``n_alleles`` i32[NB], ``lr`` f32[R, NB, A, C] (log read
+    probabilities, chains last), ``counts`` f32[R, C], ``g_onehot``
+    f32[P, NB, A, C], ``llk`` f32[C].  ``rh`` is rebuilt from the
+    genotype, then the P x NB sites are swept in h-major order with one
+    uniform each: ``noise`` f32[P * NB, C] pins them (tests), otherwise
+    they come from Philox keyed by (seed, chain) on CUDA and from a
+    ``torch.Generator`` on the CPU.  Returns (g_onehot', rh' f32[P, R,
+    C], llk' f32[C]).  CUDA tensors launch the kernel (or raise); CPU
+    tensors run ``mutation_sweep_plain``.
+    """
+    if lr.device.type == "cuda":
+        return _launch_mutation(
+            seed, n_alleles, lr, counts, g_onehot, llk, temp, noise=noise
+        )
+    if lr.device.type != "cpu":
+        raise ValueError(f"unsupported device {lr.device}")
+    return mutation_sweep_plain(
+        seed, n_alleles, lr, counts, g_onehot, llk, temp, noise=noise
+    )
+
+
+#: kernel launches made through ``mutation_sweep`` (CUDA tensors only)
+mutation_sweep.launches = 0
+
+
+def _launch_mutation(seed, n_alleles, lr, counts, g_onehot, llk, temp, *, noise):
+    R, NB, A, C = lr.shape
+    P = g_onehot.shape[0]
+    x = _mutation_layout(n_alleles, lr, counts, g_onehot, llk, noise)
+    lib = load_library()
+    warps = _warps_per_block(lib, P, R, NB)
+    g_out = torch.empty_like(x["g"])
+    rh = torch.empty((P, R, C), dtype=torch.float32, device=lr.device)
+    llk_out = torch.empty(C, dtype=torch.float32, device=lr.device)
+    stream = torch.cuda.current_stream(lr.device).cuda_stream
+    err = lib.mutation_sweep_launch(
+        x["lr"].data_ptr(), x["counts"].data_ptr(), x["nall"].data_ptr(),
+        x["problem"].data_ptr(), x["g"].data_ptr(),
+        None if noise is None else x["noise"].data_ptr(), x["llk"].data_ptr(),
+        g_out.data_ptr(), rh.data_ptr(), llk_out.data_ptr(),
+        C, R, NB, A, P, C, float(temp), int(seed) & 0xFFFFFFFFFFFFFFFF, warps,
+        stream,
+    )
+    if err != 0:
+        msg = lib.denovo_sampler_error_string(err).decode()
+        raise RuntimeError(f"mutation sweep kernel launch failed: {msg}")
+    mutation_sweep.launches += 1
+    return _as_onehot(g_out, A), rh, llk_out
+
+
+def mutation_sweep_plain(seed, n_alleles, lr, counts, g_onehot, llk, temp, *,
+                         noise=None):
+    """K0's sweep in vectorised torch (reference version)."""
+    R, NB, A, C = lr.shape
+    P = g_onehot.shape[0]
+    x = _mutation_layout(n_alleles, lr, counts, g_onehot, llk, noise)
+    uni = x["noise"]
+    if uni is None:
+        gen = torch.Generator(device=lr.device)
+        gen.manual_seed(int(seed))
+        uni = torch.rand((P * NB, C), generator=gen, device=lr.device).clamp_(min=1e-12)
+    g = x["g"].permute(2, 0, 1).long().contiguous()  # [C, P, NB]
+    rh = _row_sums(g, x["lr"])
+    log_p = torch.log(torch.tensor(float(P), dtype=torch.float32))
+    llk = _mutation_sweep_plain(
+        g, rh, x["llk"].clone(), x["lr"], x["counts"], x["nall"], uni, log_p,
+        float(temp),
+    )
+    return _as_onehot(g.permute(1, 2, 0), A), rh.permute(1, 2, 0).contiguous(), llk

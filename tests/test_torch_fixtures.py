@@ -59,6 +59,7 @@ def write_dataset(directory, n_samples=3, n_loci=3, snvs_per_locus=8,
     bed_lines = []
     sam_reads = {s: [] for s in samples}
     truth = {}
+    panels = {}
     n_tri_left = n_triallelic
     if np.ndim(snvs_per_locus) == 0:
         snvs_per_locus = [snvs_per_locus] * n_loci
@@ -92,16 +93,20 @@ def write_dataset(directory, n_samples=3, n_loci=3, snvs_per_locus=8,
                 sites = rng.choice(n_snv, founder_snvs, replace=False)
                 founders[f, sites] = rng.integers(1, n_all[sites])
         founders[0] = 0  # the reference haplotype is in the pool
+        founder_seqs = []
+        for h in founders:
+            hs = ref[start:stop].copy()
+            for k, off in enumerate(offsets):
+                hs[off] = alleles[k][h[k]]
+            founder_seqs.append("".join(hs))
+        panels[name] = dict(
+            contig="chr1", start=start, sequences=list(dict.fromkeys(founder_seqs))
+        )
         truth[name] = {}
         for s in samples:
-            haps = founders[rng.integers(0, n_founders, ploidy)]
-            seqs = []
-            for h in haps:
-                hs = ref[start:stop].copy()
-                for k, off in enumerate(offsets):
-                    hs[off] = alleles[k][h[k]]
-                seqs.append("".join(hs))
-            truth[name][s] = tuple(sorted(seqs))
+            picks = rng.integers(0, n_founders, ploidy)
+            haps = founders[picks]
+            truth[name][s] = tuple(sorted(founder_seqs[i] for i in picks))
             for r in range(reads_per_sample):
                 hap = haps[r % ploidy] if r < ploidy else haps[rng.integers(ploidy)]
                 seq = ref[start:stop].copy()
@@ -140,7 +145,52 @@ def write_dataset(directory, n_samples=3, n_loci=3, snvs_per_locus=8,
     return dict(
         reference=str(ref_path), variants=str(vcf_path), targets=str(bed_path),
         bams=sam_paths, samples=samples, truth=truth, ploidy=ploidy,
+        panels=panels, length=length,
     )
+
+
+def write_haplotype_vcf(path, data, frequency_tag=None):
+    """Write the founder pool of each locus of ``data`` (from
+    ``write_dataset``) as a haplotype VCF in ``mchap assemble``'s output
+    form: one record per locus, REF and ALT haplotype sequences over the
+    locus interval, ``INFO/END`` and ``INFO/SNVPOS``.  With
+    ``frequency_tag``, an INFO field of that name (Number=R) holds each
+    haplotype's frequency among the samples' true haplotypes, so a
+    founder that no sample carries gets 0.  Returns ``path`` as a str.
+    """
+    lines = [
+        "##fileformat=VCFv4.3",
+        f"##contig=<ID=chr1,length={data['length']}>",
+        '##INFO=<ID=END,Number=1,Type=Integer,Description="End position">',
+        '##INFO=<ID=SNVPOS,Number=.,Type=Integer,Description="SNV positions">',
+    ]
+    if frequency_tag:
+        lines.append(
+            f'##INFO=<ID={frequency_tag},Number=R,Type=Float,'
+            'Description="Prior allele frequencies">'
+        )
+    lines.append("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO")
+    for name, panel in data["panels"].items():
+        seqs = panel["sequences"]
+        chars = np.array([list(s) for s in seqs])
+        snvpos = np.flatnonzero((chars != chars[:1]).any(axis=0)) + 1
+        stop = panel["start"] + len(seqs[0])
+        info = f"END={stop};SNVPOS={','.join(map(str, snvpos)) or '.'}"
+        if frequency_tag:
+            copies = np.zeros(len(seqs))
+            for haps in data["truth"][name].values():
+                for h in haps:
+                    copies[seqs.index(h)] += 1
+            freqs = copies / copies.sum()
+            info += f";{frequency_tag}=" + ",".join(f"{f:.4f}" for f in freqs)
+        alt = ",".join(seqs[1:]) or "."
+        lines.append(
+            f"{panel['contig']}\t{panel['start'] + 1}\t{name}\t{seqs[0]}\t{alt}"
+            f"\t.\tPASS\t{info}"
+        )
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return str(path)
 
 
 def parse_vcf_records(text):
