@@ -2,10 +2,11 @@
 
 Usage: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 
-Builds the port's two CUDA kernel libraries from ``mchap_tpu_torch/csrc``
+Builds the port's three CUDA kernel libraries from ``mchap_tpu_torch/csrc``
 in parallel -- ``denovo_sampler.cu`` (K1, the de novo sampler, and K0,
-one mutation sweep) and ``calling_sampler.cu`` (K2, the calling sampler)
--- and runs nine phases, each printing one line:
+one mutation sweep), ``calling_sampler.cu`` (K2, the calling sampler)
+and ``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) -- and runs
+thirteen phases, each printing one line:
 
 A. K1 vs its plain PyTorch version on the card, pinned noise;
 B. K1 with its own Philox stream vs exact enumeration;
@@ -18,18 +19,25 @@ F. K2 with its own Philox stream vs exact enumeration;
 G. ``mchap call`` end to end on phase C's reads with phase C's output
    VCF as the haplotype panel, counting K2 launches;
 H. K2 and plain throughput at 65,536 chains x 500 steps;
-I. K0 vs its plain version, pinned noise, then one sweep timed.
+I. K0 vs its plain version, pinned noise, then one sweep timed;
+J. K3 vs its plain version, pinned noise: a bi-parental pedigree, one
+   with selfed samples and one with backcrosses;
+K. K3 with its own Philox stream vs exact enumeration of small pedigrees;
+L. ``mchap call-pedigree`` end to end on a synthetic 2 + 20 tetraploid
+   family over 20 loci, counting K3 launches;
+M. K3 and plain throughput at the pedigree bench shape.
 
 Each kernel's least time on the card (``bound_ms``) is the largest of
-its f32 operations over 67 TFLOP/s, its transcendentals (exp, log) over
-the special-function units' rate (16 per SM per clock, CUDA C++
-Programming Guide, compute capability 9.0, at the card's maximum SM
-clock) and its bytes over 3.35 TB/s; operations are counted from the
-kernel's source at the phase's shapes (``*_work``), leaving out work
-that depends on the data (accepted moves, gated structural steps), so
-the bound stays a lower bound.  The line before last is a JSON object
-describing each kernel; the last line is ``{"ok": true, "device":
-{...}}``.  Any failure raises.
+its f32 operations over 67 TFLOP/s, its f64 operations over 33.5
+TFLOP/s, its transcendentals (exp, log) over the special-function units'
+rate (16 per SM per clock, CUDA C++ Programming Guide, compute
+capability 9.0, at the card's maximum SM clock) and its bytes over 3.35
+TB/s; operations are counted from the kernel's source at the phase's
+shapes (``*_work``), leaving out work that depends on the data
+(accepted moves, gated structural steps, gamete rows), so the bound
+stays a lower bound.  The line before last is a JSON object describing
+each kernel; the last line is ``{"ok": true, "device": {...}}``.  Any
+failure raises.
 """
 
 import contextlib
@@ -213,20 +221,24 @@ def phase_b(device):
 def _reset_launches():
     from mchap_tpu_torch.ops import cuda_calling as KC
     from mchap_tpu_torch.ops import cuda_denovo as K
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
 
     K.denovo_sampler.launches = 0
     K.mutation_sweep.launches = 0
     KC.calling_sampler.launches = 0
+    K3.pedigree_sampler.launches = 0
 
 
 def _launches():
     from mchap_tpu_torch.ops import cuda_calling as KC
     from mchap_tpu_torch.ops import cuda_denovo as K
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
 
     return dict(
         denovo_sampler=K.denovo_sampler.launches,
         calling_sampler=KC.calling_sampler.launches,
         mutation_sweep=K.mutation_sweep.launches,
+        pedigree_sampler=K3.pedigree_sampler.launches,
     )
 
 
@@ -352,7 +364,8 @@ def _mutation_work(P, NB, A, R, C):
 def _bound(work, card):
     """Least time in ms, and whether bytes or operations set it."""
     t_bytes = work["bytes"] / 3.35e12
-    t_ops = max(work["flops"] / 67e12, work["transcendentals"] / card["sfu_rate"])
+    t_ops = max(work["flops"] / 67e12, work["transcendentals"] / card["sfu_rate"],
+                work.get("f64", 0.0) / 33.5e12)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -654,6 +667,300 @@ def phase_i(device, card):
     return worst, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+BIPARENTAL = [[-1, -1], [-1, -1]] + [[0, 1]] * 20
+SELFED = [[-1, -1], [0, 0], [0, 0], [1, 1], [-1, -1], [0, 4]]
+BACKCROSS = [[-1, -1], [-1, -1], [0, 1], [0, 2], [2, 1], [0, 2]]
+MIXED = [[-1, -1], [-1, -1], [0, 1], [0, 1], [2, 1]]  # ploidies 4, 2, 3, 3, 2
+MIXED_PLOIDY = [4, 2, 3, 3, 2]
+MIXED_TAU = [[2, 2], [1, 1], [2, 1], [2, 1], [1, 1]]
+
+
+def _pedigree_inputs(rng, parents, n_loci, device, ploidy=None, tau=None, H=16, NB=16,
+                     R=64):
+    """K3's per-locus inputs for one pedigree: reads simulated from each
+    sample's genotype (founders draw their ploidy of an H-haplotype panel
+    over NB SNVs, children tau of each parent's haplotypes; tetraploids
+    and 2 + 2 by default), rh f32[N, S, R, H], counts f32[N, S, R],
+    random frequencies f64[N, H], n_valid i32[N]."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops.likelihood import prepare_reads, read_hap_loglik
+    from mchap_tpu_torch.testing import simulate_reads
+
+    parents = np.asarray(parents)
+    S = len(parents)
+    ploidy = np.full(S, 4) if ploidy is None else np.asarray(ploidy)
+    tau = np.full((S, 2), 2) if tau is None else np.asarray(tau)
+    rh = np.zeros((n_loci, S, R, H), np.float32)
+    for n in range(n_loci):
+        panel = rng.integers(0, 2, size=(H, NB))
+        geno = []
+        for i, (a, b) in enumerate(parents):
+            if a < 0:
+                geno.append(rng.integers(0, H, ploidy[i]))
+            else:
+                geno.append(np.concatenate([rng.choice(geno[a], tau[i, 0], replace=False),
+                                            rng.choice(geno[b], tau[i, 1], replace=False)]))
+            reads = simulate_reads(panel[geno[i]], n_alleles=2, n_reads=R, errors=True,
+                                   error_rate=0.0024, seed=int(rng.integers(1 << 30)))
+            rh[n, i] = read_hap_loglik(prepare_reads(reads), panel).numpy()
+    freqs = rng.dirichlet(np.ones(H), size=n_loci)
+    nv = np.full(n_loci, H, np.int32)
+    counts = rng.integers(1, 3, size=(n_loci, S, R)).astype(np.float32)
+    return [torch.from_numpy(x).to(device) for x in (rh, counts, freqs, nv)]
+
+
+def _pedigree_plan(parents, ploidy=None, tau=None, err=0.1):
+    import numpy as np
+
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
+
+    S = len(parents)
+    return K3.Plan(np.full(S, 4) if ploidy is None else np.asarray(ploidy),
+                   np.asarray(parents), np.full((S, 2), 2) if tau is None else np.asarray(tau),
+                   np.zeros((S, 2)), np.full((S, 2), err))
+
+
+def phase_j(device):
+    """K3 vs its plain version on the card with the same pinned noise:
+    the bi-parental tetraploid pedigree (2 + 20, H16, R64) over 4 loci x
+    64 chains, with 16 SNVs (reads decide) and with 3 (haplotypes repeat,
+    so the chains keep moving), then pedigrees with selfed samples, with
+    backcrosses and with mixed ploidies."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
+
+    worst = 0
+    for name, parents, loci, chains, steps, nb, ploidy, tau in (
+        ("bi-parental 2+20", BIPARENTAL, 4, 64, 20, 16, None, None),
+        ("bi-parental 2+20, 3 SNVs", BIPARENTAL, 4, 64, 20, 3, None, None),
+        ("selfed, 3 SNVs", SELFED, 2, 64, 60, 3, None, None),
+        ("backcross, 3 SNVs", BACKCROSS, 2, 64, 60, 3, None, None),
+        ("mixed ploidy 4/2/3, 3 SNVs", MIXED, 2, 64, 60, 3, MIXED_PLOIDY, MIXED_TAU),
+    ):
+        rng = np.random.default_rng(len(parents) + steps + nb)
+        rh, counts, freqs, nv = _pedigree_inputs(rng, parents, loci, device, ploidy, tau,
+                                                 NB=nb)
+        plan = _pedigree_plan(parents, ploidy, tau)
+        C = loci * chains
+        S, maxp, H = plan.n_samples, plan.max_ploidy, rh.shape[-1]
+        prob = torch.arange(loci, dtype=torch.int32, device=device).repeat_interleave(chains)
+        init = rng.integers(0, H, (C, S, maxp)).astype(np.int32)
+        init[:, np.arange(maxp)[None, :] >= plan.ploidy[:, None]] = -1
+        init = torch.from_numpy(init).to(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(S)
+        noise = torch.rand((steps, plan.n_draws(H), C), generator=gen,
+                           device=device).clamp_(min=1e-12)
+        args = (rh, counts, freqs, nv, prob, init, plan)
+        t_k = K3.pedigree_sampler(*args, n_steps=steps, noise=noise)
+        t_p = K3.pedigree_sampler_plain(*args, n_steps=steps, noise=noise)
+        torch.cuda.synchronize()
+        same = (t_k == t_p).flatten(1).all(1)
+        frac = same.float().mean().item()
+        err = (t_k.long() - t_p.long()).abs().max().item()
+        states = torch.cat([init[:, None].to(t_k.dtype), t_k], 1)
+        moved = (states[:, 1:] != states[:, :-1]).flatten(2).any(2).float().mean().item()
+        print(
+            f"phase J ({name}): K3 identical chains {frac:.4f} of {C} over {steps}"
+            f" steps ({S} samples P{maxp} H{H} R{rh.shape[2]}, {loci} loci);"
+            f" max |allele kernel - plain| {err}; steps that changed a genotype"
+            f" {moved:.3f}", flush=True,
+        )
+        if frac < 1.0:
+            _fail(f"phase J ({name})")
+        worst = max(worst, err)
+    return float(worst)
+
+
+def phase_k(device):
+    """K3 with its own Philox stream vs exact enumeration of the joint
+    (TV <= 0.02 per sample): the two scenarios of
+    scripts/gate_pallas_pedigree.py at 3x their steps, and a selfed trio."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.models.pedigree import _sort_roll_trace
+    from mchap_tpu_torch.numerics.combinadics import genotype_alleles_as_index
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
+    from mchap_tpu_torch.ops import exact
+    from mchap_tpu_torch.ops.likelihood import prepare_reads, read_hap_loglik
+    from mchap_tpu_torch.testing import exact_pedigree_marginals, simulate_reads
+
+    haps = np.array([[0, 0], [0, 1], [1, 1]], dtype=np.int8)
+    worst = 0.0
+    for name, ploidy, tau_child, parents in (
+        ("trio", 2, (1, 1), [[-1, -1], [-1, -1], [0, 1]]),
+        ("tau31", 4, (3, 1), [[-1, -1], [-1, -1], [0, 1]]),
+        ("selfed trio", 2, (1, 1), [[-1, -1], [-1, -1], [0, 0]]),
+    ):
+        parents = np.asarray(parents)
+        tau = np.full((3, 2), max(ploidy // 2, 1))
+        tau[2] = tau_child
+        lam, err = np.zeros((3, 2)), np.full((3, 2), 0.01)
+        rng = np.random.default_rng(3)
+        truths = [haps[rng.integers(0, 3, ploidy)] for _ in range(3)]
+        reads = [simulate_reads(t_, n_alleles=2, n_reads=4, qual=(14, 18), seed=i)
+                 for i, t_ in enumerate(truths)]
+        llks = np.stack([exact.genotype_likelihoods(r, ploidy, haps).numpy() for r in reads])
+        want = exact_pedigree_marginals(llks, parents, tau, lam, err, 3, ploidy)
+        plan = K3.Plan(np.full(3, ploidy), parents, tau, lam, err)
+        rh = torch.stack([read_hap_loglik(prepare_reads(r), haps) for r in reads])
+        C, STEPS, BURN = 64, 9000, 1500
+        trace = K3.pedigree_sampler(
+            rh[None].float().contiguous().to(device), torch.ones((1, 3, 4), device=device),
+            torch.full((1, 3), 1 / 3, dtype=torch.float64, device=device),
+            torch.tensor([3], dtype=torch.int32, device=device),
+            torch.zeros(C, dtype=torch.int32, device=device),
+            torch.zeros((C, 3, ploidy), dtype=torch.int32, device=device), plan,
+            n_steps=STEPS, seed=17,
+        )
+        g = _sort_roll_trace(trace[:, BURN:].cpu().numpy().astype(np.int64),
+                             np.full(3, ploidy), ploidy)
+        tvs = []
+        for i in range(3):
+            idx = genotype_alleles_as_index(g[:, :, i].reshape(-1, ploidy))
+            got = np.bincount(idx, minlength=want.shape[1]) / idx.size
+            tvs.append(0.5 * np.abs(got - want[i]).sum())
+        print(f"phase K ({name}): TV(K3, exact) per sample"
+              f" {', '.join(f'{x:.4f}' for x in tvs)} (bound 0.02; {C} chains x"
+              f" {STEPS} steps, burn {BURN})", flush=True)
+        if max(tvs) > 0.02:
+            _fail(f"phase K ({name})")
+        worst = max(worst, max(tvs))
+    return worst
+
+
+def phase_l(device, extra=()):
+    """``mchap call-pedigree`` at default settings through the CLI entry
+    point, on a synthetic dataset of the reference example's design: 2
+    tetraploid parents + 20 Mendelian progeny, 20 loci, 64 reads per
+    sample and locus, the parents' haplotype pool as the panel."""
+    from test_torch_fixtures import parse_vcf_records, write_dataset, write_haplotype_vcf
+
+    from mchap_tpu_torch.constant import PFEIFFER_ERROR
+    from mchap_tpu_torch.utils import fallback
+
+    n_loci = 20
+    data = write_dataset(
+        WORK / "pedigree", n_samples=22, n_loci=n_loci, snvs_per_locus=[44] * 6 + [43] * 14,
+        ploidy=4, reads_per_sample=64, n_triallelic=5, error_rate=PFEIFFER_ERROR,
+        n_founders=6, locus_length=300, founder_snvs=6, pedigree=True, seed=2025,
+    )
+    panel = write_haplotype_vcf(WORK / "pedigree" / "panel.vcf", data)
+    argv = [
+        "mchap", "call-pedigree", "--bam", *data["bams"], "--ploidy", "4",
+        "--haplotypes", panel, "--reference", data["reference"],
+        "--sample-parents", data["pedigree"], *extra,
+    ]
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the tool is experimental
+        rc, vcf, wall, launches, timers = _run_cli(argv)
+    torch_route = fallback.PATHS[("pedigree", "torch")]
+    (WORK / "pedigree" / "out.vcf").write_text(vcf)
+    records = parse_vcf_records(vcf)
+    agree, total = _truth_agreement(records, data["truth"])
+    frac = agree / max(total, 1)
+    incomplete = sum(
+        "." in c["GT"] for rec in records if rec["FILTER"] == "PASS"
+        for c in rec["calls"].values()
+    )
+    k3 = launches["pedigree_sampler"]
+    print(
+        f"phase L: call-pedigree exit {rc}, {len(records)} records, K3 launches {k3},"
+        f" torch-sampler runs {torch_route}, GT with '.' in PASS records"
+        f" {incomplete}, GT == truth {agree}/{total} = {frac:.4f} (bound 0.90);"
+        f" wall {wall:.2f} s = {n_loci / wall:.3f} loci/s", flush=True,
+    )
+    for line in timers.summary_lines():
+        print("phase L timing:", line, flush=True)
+    if (rc != 0 or len(records) != n_loci or k3 < 1 or torch_route or incomplete
+            or total != 440 or frac < 0.90):
+        _fail("phase L")
+    return launches
+
+
+def _pedigree_work(plan, N, R, H, C, T):
+    """K3 per launch, counted from pedigree_sampler.cu.  Per slot update:
+    each read's rest (P - 1 expf and a logf, 2P f32 operations), then per
+    candidate and read expf and log1pf with 4 f32 and 3 f64 operations,
+    per candidate two f64 logs (counted as 20 f64 operations each) and
+    the trio of the sample and each child, counted as its D branch alone
+    (4P f64 operations; the gamete rows depend on the data and are left
+    out).  Per pair: both samples' read terms and two trios per blanket
+    member.  Bytes: every input once and the int16 trace."""
+    flops = tr = f64 = 0
+    for s in range(plan.n_samples):
+        P = int(plan.ploidy[s])
+        trios = 1 + len(plan.children[s])
+        tr += P * (R * P + 2 * R * H)
+        flops += P * (2 * R * P + 4 * R * H)
+        f64 += P * (3 * R * H + H * (40 + 4 * P * trios + 3))
+    for (p, q), blanket in zip(plan.pairs, plan.blankets):
+        for s in (p, q):
+            P = int(plan.ploidy[s])
+            tr += R * (P + 4)
+            f64 += 3 * R
+        f64 += sum(8 * int(plan.ploidy[x]) for x in blanket)
+    S, maxp = plan.n_samples, plan.max_ploidy
+    nbytes = (4 * N * S * R * H + 4 * N * S * R + 8 * N * H + 4 * N + 4 * C
+              + 4 * C * S * maxp + 2 * C * T * S * maxp)
+    work = _work(flops * C * T, tr * C * T, nbytes)
+    work["f64"] = float(f64 * C * T)
+    return work
+
+
+def phase_m(device, card):
+    """K3 alone at the TPU-era pedigree bench shape (bench.py:168-234):
+    22-sample bi-parental pedigree, P4, R64, 16 haplotypes over 16 SNVs,
+    gamete error 0.1, 128 loci x 1 chain x 500 steps; then 128 loci x
+    128 chains x 50 steps to fill the card."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
+
+    rng = np.random.default_rng(23)
+    N, R, H = 128, 64, 16
+    rh, counts, freqs, nv = _pedigree_inputs(rng, BIPARENTAL, N, device)
+    plan = _pedigree_plan(BIPARENTAL)
+    S, maxp = plan.n_samples, plan.max_ploidy
+    out = None
+    for chains, steps in ((1, 500), (128, 50)):
+        C = N * chains
+        prob = torch.arange(N, dtype=torch.int32, device=device).repeat_interleave(chains)
+        init = torch.from_numpy(rng.integers(0, H, (C, S, maxp)).astype(np.int32)).to(device)
+        args = (rh, counts, freqs, nv, prob, init, plan)
+        K3.pedigree_sampler(*args, n_steps=2)  # warm-up
+        k_ms = _time_cuda(lambda: K3.pedigree_sampler(*args, n_steps=steps, seed=5), 2)
+        plain_steps = 2
+        K3.pedigree_sampler_plain(*args, n_steps=1)
+        p_ms = _time_cuda(
+            lambda: K3.pedigree_sampler_plain(*args, n_steps=plain_steps, seed=5), 1
+        )
+        work = _pedigree_work(plan, N, R, H, C, steps)
+        bound_ms, bound_by = _bound(work, card)
+        print(
+            f"phase M: K3 {N} loci x {chains} chains ({S} samples P{maxp} R{R} H{H}):"
+            f" kernel {k_ms:.1f} ms for {steps} steps = {C * steps / (k_ms / 1e3):.4g}"
+            f" compound chain-steps/s; plain {p_ms:.1f} ms for {plain_steps} steps ="
+            f" {C * plain_steps / (p_ms / 1e3):.4g} chain-steps/s; bound"
+            f" {bound_ms:.3f} ms by {bound_by} ({work['flops']:.3g} f32 operations,"
+            f" {work['transcendentals']:.3g} expf/logf, {work['f64']:.3g} f64"
+            f" operations, {work['bytes']:.3g} bytes), kernel at"
+            f" {bound_ms / k_ms:.2%} of it", flush=True,
+        )
+        if out is None:
+            out = dict(ms=k_ms / steps, plain_ms=p_ms / plain_steps,
+                       bound_ms=bound_ms / steps, bound_by=bound_by)
+    return out
+
+
 def _card():
     """Name and power limit line, SM count and special-function rate."""
     import torch
@@ -669,24 +976,27 @@ def _card():
 
 
 def _build_all():
-    """Build both kernel libraries at once (one nvcc each), then print
-    each build's time and ptxas's register lines."""
+    """Build the three kernel libraries at once (one nvcc each), then
+    print each build's time and ptxas's register lines."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mchap_tpu_torch.ops import cuda_calling as KC
     from mchap_tpu_torch.ops import cuda_denovo as K
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
 
     def timed(mod):
         t0 = time.perf_counter()
         mod.load_library()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        times = list(pool.map(timed, (K, KC)))
-    for name, mod, t in (("K1/K0", K, times[0]), ("K2", KC, times[1])):
+    with ThreadPoolExecutor(3) as pool:
+        times = list(pool.map(timed, (K, KC, K3)))
+    for name, mod, t in (("K1/K0", K, times[0]), ("K2", KC, times[1]),
+                         ("K3", K3, times[2])):
         print(f"build: {name} built and loaded in {t:.1f} s", flush=True)
         for line in mod.build_log_path().read_text().splitlines():
-            if "Used" in line and "registers" in line:
+            spills = "stack frame" in line and not line.split(":")[-1].strip().startswith("0 bytes")
+            if ("Used" in line and "registers" in line) or spills:
                 print(f"ptxas ({name}):", line.split("info    :")[-1].strip())
 
 
@@ -721,6 +1031,10 @@ def main():
         ("G", lambda: phase_g(device, results["C"][1])),
         ("H", lambda: phase_h(device, card)),
         ("I", lambda: phase_i(device, card)),
+        ("J", lambda: phase_j(device)),
+        ("K", lambda: phase_k(device)),
+        ("L", lambda: phase_l(device)),
+        ("M", lambda: phase_m(device, card)),
     ]
     for name, run in runners:
         t = time.perf_counter()
@@ -728,7 +1042,7 @@ def main():
         print(f"time: phase {name} {time.perf_counter() - t:.1f} s", flush=True)
 
     torch.cuda.synchronize()
-    main_paths = (results["C"][0], results["G"])
+    main_paths = (results["C"][0], results["G"], results["L"])
     err_i, i = results["I"]
     kernels = [
         dict(name="denovo_sampler", source="mchap_tpu_torch/csrc/denovo_sampler.cu",
@@ -743,6 +1057,10 @@ def main():
              replaces="mchap_tpu/ops/pallas_denovo.py:76",
              launches=sum(p["mutation_sweep"] for p in main_paths),
              max_abs_err=err_i, **i),
+        dict(name="pedigree_sampler", source="mchap_tpu_torch/csrc/pedigree_sampler.cu",
+             replaces="mchap_tpu/ops/pallas_pedigree.py:609",
+             launches=results["L"]["pedigree_sampler"], max_abs_err=results["J"],
+             **results["M"]),
     ]
     for k in kernels:
         k["route"] = "cuda"

@@ -1,6 +1,7 @@
-"""CLI flag definitions and argument collectors for ``assemble`` and ``call``.
+"""CLI flag definitions and argument collectors for ``assemble``, ``call``
+and ``call-pedigree``.
 
-Port of the assemble and call parts of ``mchap_tpu/application/arguments.py``.
+Port of those parts of ``mchap_tpu/application/arguments.py``.
 Mirrors the flag surface of reference ``mchap/application/arguments.py``
 (same flag names, arities, and defaults — see docs/cli-*-help.txt in the
 reference), including the recurring convention that every per-sample
@@ -103,6 +104,31 @@ assembly_dirmul_prior = _p(
     "genotype prior with a Dirichlet-multinomial prior assuming all "
     "possible haplotypes are equally probable. Takes an inbreeding "
     "coefficient in [0,1] or a sample<TAB>value file.",
+)
+prior_frequencies = _p(
+    "--prior-frequencies", type=str, nargs=1, default=[None],
+    help="INFO field of the input VCF to use as prior allele frequencies "
+    "(numerical, length 'R'; normalized automatically).",
+)
+sample_parents = _p(
+    "--sample-parents", type=str, nargs=1, default=[None],
+    help="Pedigree file: sample<TAB>parent1<TAB>parent2 per line; '.' marks "
+    "an unknown parent.",
+)
+gamete_ploidy = _p(
+    "--gamete-ploidy", type=str, nargs=1, default=[None],
+    help="Ploidy of gametes contributing to each sample (default: half the "
+    "sample ploidy): one integer or a sample<TAB>tau_p<TAB>tau_q file.",
+)
+gamete_ibd = _p(
+    "--gamete-ibd", type=str, nargs=1, default=["0.0"],
+    help="Excess IBD of gametes (diploid gametes only), in [0,1]: one value "
+    "or a sample<TAB>lambda_p<TAB>lambda_q file (default = 0.0).",
+)
+gamete_error = _p(
+    "--gamete-error", type=str, nargs=1, default=["0.01"],
+    help="Probability a gamete was not derived from the specified parent, in "
+    "[0,1]: one value or a sample<TAB>err_p<TAB>err_q file (default = 0.01).",
 )
 sample_pool = _p(
     "--sample-pool", type=str, nargs=1, default=[None],
@@ -233,11 +259,11 @@ locus_batch = _p(
     "The MCHAP_LOCUS_BATCH environment variable overrides this flag.",
 )
 device = _p(
-    "--device", type=str, nargs=1, default=["auto"],
-    choices=["auto", "cuda", "cpu"],
-    help='Where the sampler runs (default = "auto": the GPU when CUDA is '
-    "visible, else the CPU). With a GPU the CUDA kernel runs or the run "
-    "fails; the CPU runs the kernel's plain PyTorch version.",
+    "--device", type=str, nargs=1, default=["cuda"],
+    choices=["cuda", "cpu"],
+    help='Where the sampler runs (default = "cuda": the GPU; the run fails '
+    "when no CUDA device is visible). On the GPU the CUDA kernels run or "
+    'the run fails; "cpu" runs the kernels\' plain PyTorch versions.',
 )
 
 SAMPLE_FLATPRIOR_ARGUMENTS = [bam, ploidy, sample_pool]
@@ -284,6 +310,16 @@ ASSEMBLE_MCMC_PARSER_ARGUMENTS = (
 
 CALL_MCMC_PARSER_ARGUMENTS = (
     SAMPLE_DIRMUL_ARGUMENTS
+    + LOCI_KNOWN_ARGUMENTS
+    + READ_ENCODING_ARGUMENTS
+    + MCMC_ARGUMENTS
+    + OUTPUT_ARGUMENTS
+    + CORES_ARGUMENTS
+)
+
+CALL_PEDIGREE_MCMC_PARSER_ARGUMENTS = (
+    SAMPLE_FLATPRIOR_ARGUMENTS
+    + [prior_frequencies, sample_parents, gamete_ploidy, gamete_ibd, gamete_error]
     + LOCI_KNOWN_ARGUMENTS
     + READ_ENCODING_ARGUMENTS
     + MCMC_ARGUMENTS
@@ -395,6 +431,81 @@ def parse_sample_value_map(argument, samples, type):
     return data
 
 
+def parse_pedigree_arguments(
+    samples,
+    sample_bams,
+    ploidy_argument,
+    sample_parents_argument,
+    gamete_ploidy_argument,
+    gamete_ibd_argument,
+    gamete_error_argument,
+):
+    """Pedigree tables -> per-sample parent/gamete maps; arguments.py:991-1119."""
+    known_samples = set(samples)
+    sample_parents = {}
+    with open(sample_parents_argument) as f:
+        for line in f.readlines():
+            sample, p, q = line.strip().split("\t")
+            if sample not in known_samples:
+                samples.append(sample)
+                sample_bams[sample] = []
+                known_samples.add(sample)
+            sample_parents[sample] = (
+                None if p == "." else p,
+                None if q == "." else q,
+            )
+
+    sample_ploidy = parse_sample_value_map(ploidy_argument, samples, type=int)
+
+    gamete_ploidy = {}
+    if gamete_ploidy_argument is None:
+        for sample in samples:
+            p = sample_ploidy[sample]
+            if p % 2:
+                raise ValueError(
+                    "Gamete ploidy must be specified for individuals with odd ploidy"
+                )
+            gamete_ploidy[sample] = (p // 2, p // 2)
+    elif gamete_ploidy_argument.isdigit():
+        tau = int(gamete_ploidy_argument)
+        gamete_ploidy = {s: (tau, tau) for s in samples}
+    else:
+        with open(gamete_ploidy_argument) as f:
+            for line in f.readlines():
+                sample, tau_p, tau_q = line.strip().split("\t")
+                gamete_ploidy[sample] = (int(tau_p), int(tau_q))
+
+    gamete_ibd = {}
+    if gamete_ibd_argument.replace(".", "", 1).isdigit():
+        lam = float(gamete_ibd_argument)
+        gamete_ibd = {s: (lam, lam) for s in samples}
+    else:
+        with open(gamete_ibd_argument) as f:
+            for line in f.readlines():
+                sample, lam_p, lam_q = line.strip().split("\t")
+                gamete_ibd[sample] = (float(lam_p), float(lam_q))
+
+    gamete_error = {}
+    if gamete_error_argument.replace(".", "", 1).isdigit():
+        err = float(gamete_error_argument)
+        gamete_error = {s: (err, err) for s in samples}
+    else:
+        with open(gamete_error_argument) as f:
+            for line in f.readlines():
+                sample, err_p, err_q = line.strip().split("\t")
+                gamete_error[sample] = (float(err_p), float(err_q))
+
+    return dict(
+        samples=samples,
+        sample_bams=sample_bams,
+        sample_ploidy=sample_ploidy,
+        sample_parents=sample_parents,
+        gamete_ploidy=gamete_ploidy,
+        gamete_ibd=gamete_ibd,
+        gamete_error=gamete_error,
+    )
+
+
 def parse_sample_temperatures(mcmc_temperatures_argument, samples):
     """Inverse-temperature ladders per sample; arguments.py:1122-1166."""
     if len(mcmc_temperatures_argument) > 1:
@@ -492,6 +603,27 @@ def collect_call_mcmc_program_arguments(arguments):
     data["vcf"] = arguments.haplotypes[0]
     data["prior_frequencies_tag"] = arguments.use_dirmul_prior[1]
     data["filter_input_haplotypes"] = arguments.filter_input_haplotypes[0]
+    return data
+
+
+def collect_call_pedigree_mcmc_program_arguments(arguments):
+    data = collect_default_program_arguments(arguments, skip_inbreeding=True)
+    data["format_fields"] = data["format_fields"] + VCF.FORMAT_PEDIGREE_FIELDS
+    data.update(collect_default_mcmc_program_arguments(arguments))
+    data["vcf"] = arguments.haplotypes[0]
+    data["prior_frequencies_tag"] = arguments.prior_frequencies[0]
+    data["filter_input_haplotypes"] = arguments.filter_input_haplotypes[0]
+    data.update(
+        parse_pedigree_arguments(
+            samples=data["samples"],
+            sample_bams=data["sample_bams"],
+            ploidy_argument=arguments.ploidy[0],
+            sample_parents_argument=arguments.sample_parents[0],
+            gamete_ploidy_argument=arguments.gamete_ploidy[0],
+            gamete_ibd_argument=arguments.gamete_ibd[0],
+            gamete_error_argument=arguments.gamete_error[0],
+        )
+    )
     return data
 
 

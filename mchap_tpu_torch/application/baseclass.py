@@ -76,7 +76,7 @@ class program:
     format_fields: list = None
     n_cores: int = 1
     locus_batch: str = "auto"
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
     precision: int = 3
     random_seed: int = 42
     cli_command: str = None

@@ -1,4 +1,4 @@
-"""CLI dispatch: ``mchap {assemble,call}``.
+"""CLI dispatch: ``mchap {assemble,call,call-pedigree}``.
 
 Reference: mchap/application/cli.py.  The other ``mchap`` tools of
 ``mchap_tpu`` are not ported yet and exit with an error.
@@ -6,8 +6,8 @@ Reference: mchap/application/cli.py.  The other ``mchap`` tools of
 
 import sys
 
-TOOLS = ["assemble", "call"]
-NOT_PORTED = ["call-exact", "call-pedigree", "find-snvs", "atomize"]
+TOOLS = ["assemble", "call", "call-pedigree"]
+NOT_PORTED = ["call-exact", "find-snvs", "atomize"]
 
 
 def main(command=None):
@@ -23,6 +23,8 @@ def main(command=None):
         from mchap_tpu_torch.application.assemble import program
     elif tool == "call":
         from mchap_tpu_torch.application.call import program
+    elif tool == "call-pedigree":
+        from mchap_tpu_torch.application.call_pedigree import program
     else:
         print(usage, file=sys.stderr)
         if tool in NOT_PORTED:

@@ -101,7 +101,7 @@ class DenovoMCMC:
     """De novo assembly sampler; attributes as reference mcmc.py:24-100.
 
     ``fit`` runs the batched core with one problem.  ``device`` is
-    ``"auto"`` (CUDA when visible), ``"cuda"`` or ``"cpu"``.
+    ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
     """
 
     ploidy: int
@@ -119,7 +119,7 @@ class DenovoMCMC:
     temperatures: tuple = (1.0,)
     random_seed: int = None
     llk_cache_threshold: int = 100  # accepted for API parity; no cache here
-    device: str = "auto"
+    device: str = "cuda"
 
     def fit(self, reads, read_counts=None, initial=None):
         """Run ``chains`` MCMC chains; returns GenotypeMultiTrace.

@@ -137,7 +137,7 @@ class CallingMCMC:
     """MCMC genotype caller over a known haplotype panel.
 
     Attributes mirror reference calling/classes.py:15-47; ``device`` is
-    ``"auto"`` (CUDA when visible), ``"cuda"`` or ``"cpu"``.
+    ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
     """
 
     ploidy: int
@@ -147,7 +147,7 @@ class CallingMCMC:
     chains: int = 2
     random_seed: int = None
     step_type: str = "Gibbs"
-    device: str = "auto"
+    device: str = "cuda"
 
     def fit(self, reads, read_counts=None, initial=None):
         """Run ``chains`` batched MCMC chains; returns a multi-chain trace.

@@ -29,9 +29,15 @@ def _md_tag(read, ref):
 def write_dataset(directory, n_samples=3, n_loci=3, snvs_per_locus=8,
                   ploidy=4, reads_per_sample=40, n_triallelic=1,
                   error_rate=0.0, n_founders=4, locus_length=120,
-                  founder_snvs=None, seed=0):
+                  founder_snvs=None, pedigree=False, seed=0):
     """Write ``ref.fa``, ``variants.vcf``, ``targets.bed`` and one
     ``<sample>.sam`` per sample into ``directory``.
+
+    With ``pedigree``, the first two samples are parents and every other
+    sample their Mendelian progeny: at each locus a child takes ploidy/2
+    of each parent's haplotypes (distinct slots).  ``pedigree.txt`` then
+    lists each sample with its parents ('.' for unknown) and the result
+    holds its path under ``pedigree``.
 
     ``snvs_per_locus`` is one count for every locus or a list of counts.
     Founder 0 is the reference haplotype; the others draw an allele at
@@ -103,8 +109,16 @@ def write_dataset(directory, n_samples=3, n_loci=3, snvs_per_locus=8,
             contig="chr1", start=start, sequences=list(dict.fromkeys(founder_seqs))
         )
         truth[name] = {}
-        for s in samples:
-            picks = rng.integers(0, n_founders, ploidy)
+        picked = []
+        for si, s in enumerate(samples):
+            if pedigree and si >= 2:
+                picks = np.concatenate([
+                    rng.choice(picked[0], ploidy // 2, replace=False),
+                    rng.choice(picked[1], ploidy // 2, replace=False),
+                ])
+            else:
+                picks = rng.integers(0, n_founders, ploidy)
+            picked.append(picks)
             haps = founders[picks]
             truth[name][s] = tuple(sorted(founder_seqs[i] for i in picks))
             for r in range(reads_per_sample):
@@ -142,11 +156,18 @@ def write_dataset(directory, n_samples=3, n_loci=3, snvs_per_locus=8,
         ]
         path.write_text("\n".join(header + sam_reads[s]) + "\n")
         sam_paths.append(str(path))
-    return dict(
+    out = dict(
         reference=str(ref_path), variants=str(vcf_path), targets=str(bed_path),
         bams=sam_paths, samples=samples, truth=truth, ploidy=ploidy,
         panels=panels, length=length,
     )
+    if pedigree:
+        lines = [f"{s}\t.\t." for s in samples[:2]] + [
+            f"{s}\t{samples[0]}\t{samples[1]}" for s in samples[2:]
+        ]
+        out["pedigree"] = str(directory / "pedigree.txt")
+        (directory / "pedigree.txt").write_text("\n".join(lines) + "\n")
+    return out
 
 
 def write_haplotype_vcf(path, data, frequency_tag=None):
