@@ -21,11 +21,13 @@ G. ``mchap call`` end to end on phase C's reads with phase C's output
 H. K2 and plain throughput at 65,536 chains x 500 steps;
 I. K0 vs its plain version, pinned noise, then one sweep timed;
 J. K3 vs its plain version, pinned noise: a bi-parental pedigree, one
-   with selfed samples and one with backcrosses;
+   with selfed samples, one with backcrosses, one with mixed ploidies,
+   one over three generations and a hexaploid family;
 K. K3 with its own Philox stream vs exact enumeration of small pedigrees;
 L. ``mchap call-pedigree`` end to end on a synthetic 2 + 20 tetraploid
    family over 20 loci, counting K3 launches;
-M. K3 and plain throughput at the pedigree bench shape.
+M. K3 and plain throughput at the pedigree bench shape, with K3's waves
+   and warps per block.
 
 Each kernel's least time on the card (``bound_ms``) is the largest of
 its f32 operations over 67 TFLOP/s, its f64 operations over 33.5
@@ -673,6 +675,10 @@ BACKCROSS = [[-1, -1], [-1, -1], [0, 1], [0, 2], [2, 1], [0, 2]]
 MIXED = [[-1, -1], [-1, -1], [0, 1], [0, 1], [2, 1]]  # ploidies 4, 2, 3, 3, 2
 MIXED_PLOIDY = [4, 2, 3, 3, 2]
 MIXED_TAU = [[2, 2], [1, 1], [2, 1], [2, 1], [1, 1]]
+# two founders, six F1, eight F2 from F1 pairs, one F2 backcrossed to a
+# founder: short waves that interleave with their parents
+THREE_GEN = ([[-1, -1], [-1, -1]] + [[0, 1]] * 6
+             + [[2, 3], [2, 3], [4, 5], [4, 5], [6, 7], [6, 7], [3, 4], [5, 6]] + [[8, 0]])
 
 
 def _pedigree_inputs(rng, parents, n_loci, device, ploidy=None, tau=None, H=16, NB=16,
@@ -727,7 +733,8 @@ def phase_j(device):
     the bi-parental tetraploid pedigree (2 + 20, H16, R64) over 4 loci x
     64 chains, with 16 SNVs (reads decide) and with 3 (haplotypes repeat,
     so the chains keep moving), then pedigrees with selfed samples, with
-    backcrosses and with mixed ploidies."""
+    backcrosses, with mixed ploidies, over three generations and of
+    hexaploids (the kernel's P <= 6 instance)."""
     import numpy as np
     import torch
 
@@ -740,6 +747,8 @@ def phase_j(device):
         ("selfed, 3 SNVs", SELFED, 2, 64, 60, 3, None, None),
         ("backcross, 3 SNVs", BACKCROSS, 2, 64, 60, 3, None, None),
         ("mixed ploidy 4/2/3, 3 SNVs", MIXED, 2, 64, 60, 3, MIXED_PLOIDY, MIXED_TAU),
+        ("three generations, 3 SNVs", THREE_GEN, 2, 64, 40, 3, None, None),
+        ("hexaploid 2+6, 3 SNVs", BIPARENTAL[:8], 2, 64, 40, 3, [6] * 8, [[3, 3]] * 8),
     ):
         rng = np.random.default_rng(len(parents) + steps + nb)
         rh, counts, freqs, nv = _pedigree_inputs(rng, parents, loci, device, ploidy, tau,
@@ -766,7 +775,8 @@ def phase_j(device):
         moved = (states[:, 1:] != states[:, :-1]).flatten(2).any(2).float().mean().item()
         print(
             f"phase J ({name}): K3 identical chains {frac:.4f} of {C} over {steps}"
-            f" steps ({S} samples P{maxp} H{H} R{rh.shape[2]}, {loci} loci);"
+            f" steps ({S} samples P{maxp} H{H} R{rh.shape[2]}, {loci} loci,"
+            f" {len(plan.waves)} waves);"
             f" max |allele kernel - plain| {err}; steps that changed a genotype"
             f" {moved:.3f}", flush=True,
         )
@@ -930,9 +940,12 @@ def phase_m(device, card):
     rh, counts, freqs, nv = _pedigree_inputs(rng, BIPARENTAL, N, device)
     plan = _pedigree_plan(BIPARENTAL)
     S, maxp = plan.n_samples, plan.max_ploidy
+    print(f"phase M: {len(plan.waves)} waves of {[len(w) for w in plan.waves]} samples",
+          flush=True)
     out = None
     for chains, steps in ((1, 500), (128, 50)):
         C = N * chains
+        warps = K3.launch_warps(plan, C, R, device)
         prob = torch.arange(N, dtype=torch.int32, device=device).repeat_interleave(chains)
         init = torch.from_numpy(rng.integers(0, H, (C, S, maxp)).astype(np.int32)).to(device)
         args = (rh, counts, freqs, nv, prob, init, plan)
@@ -946,7 +959,8 @@ def phase_m(device, card):
         work = _pedigree_work(plan, N, R, H, C, steps)
         bound_ms, bound_by = _bound(work, card)
         print(
-            f"phase M: K3 {N} loci x {chains} chains ({S} samples P{maxp} R{R} H{H}):"
+            f"phase M: K3 {N} loci x {chains} chains ({S} samples P{maxp} R{R} H{H},"
+            f" {warps} warps per chain's block):"
             f" kernel {k_ms:.1f} ms for {steps} steps = {C * steps / (k_ms / 1e3):.4g}"
             f" compound chain-steps/s; plain {p_ms:.1f} ms for {plain_steps} steps ="
             f" {C * plain_steps / (p_ms / 1e3):.4g} chain-steps/s; bound"

@@ -39,6 +39,18 @@ no-op on the genotype multiset.
 tensors (and raises if it cannot) and runs ``pedigree_sampler_plain``,
 the same function in vectorised torch over chains, on CPU tensors.
 
+The kernel runs one block of ``warps_per_block`` warps per (locus,
+chain), the chain's genotypes in shared memory.  ``Plan.waves`` cuts the
+update order into runs of consecutive samples none of which is in
+another's Markov blanket (parents, children, the children's other
+parents).  A wave's members are updated at once, in rounds of up to one
+per warp, each on a team of warps (a lone founder on the whole block, a
+family's progeny on one warp each).  Their conditionals read disjoint
+state and every draw is addressed by (step, sample, slot, candidate), so
+the trace is the serial order's.  Within a team the read terms are
+spread over (read, candidate) and a founder's trios over (child,
+candidate), then added per candidate in the plain version's order.
+
 Inputs are per problem: ``rh`` f32[N, S, R, H] (read x haplotype
 log-probabilities), ``counts`` f32[N, S, R], ``freqs`` f64[N, H] (linear
 prior frequencies), ``n_valid`` i32[N]; ``problem`` i32[C] maps each
@@ -48,7 +60,6 @@ alleles after each step, int16[C, n_steps, S, maxp].
 """
 
 import ctypes
-import itertools
 import math
 import threading
 
@@ -56,13 +67,15 @@ import numpy as np
 import torch
 
 from mchap_tpu_torch.ops import nvcc_build
+from mchap_tpu_torch.ops.pedigree_mcmc import markov_blankets
 
 _NAME = "pedigree_sampler"
-_WARPS_PER_BLOCK = 4
 MAX_PLOIDY = 8
 NEG = -1e300
-# log P for P = 0..8 (0 for P = 0), shared by the kernel and the plain version
+# log P (0 for P = 0) and log1p(copies), for 0..8, shared by the kernel
+# and the plain version
 _LOG_PLOIDY = np.array([0.0] + [math.log(P) for P in range(1, MAX_PLOIDY + 1)])
+_LOG1P = np.log1p(np.arange(MAX_PLOIDY + 1, dtype=np.float64))
 
 
 class UnsupportedPedigree(ValueError):
@@ -155,7 +168,9 @@ class Plan:
     gamete ploidies and trio branch weights, each sample's children (each
     child once, ascending), and the parental pairs (p < q, first-seen
     order, p == q skipped) with their blankets (the pair and the
-    children of either parent, each once, ascending).
+    children of either parent, each once, ascending), and ``waves``:
+    ``order`` cut greedily into maximal runs of consecutive samples none
+    of which is in another's Markov blanket.
     """
 
     def __init__(self, sample_ploidy, sample_parents, gamete_tau,
@@ -197,6 +212,13 @@ class Plan:
                 seen.add((p, q))
                 self.pairs.append((p, q))
                 self.blankets.append(sorted({p, q, *self.children[p], *self.children[q]}))
+        blanket = markov_blankets(self.parents)
+        self.waves = []
+        for s in self.order:
+            if self.waves and not any(s in blanket[m] for m in self.waves[-1]):
+                self.waves[-1].append(s)
+            else:
+                self.waves.append([s])
         # the plain version evaluates samples of one trio configuration
         # (parents, gamete ploidies, weights, ploidy) as one batch
         self.child_groups = [self._groups(c) for c in self.children]
@@ -216,11 +238,12 @@ class Plan:
         n = self.n_samples
         child_ptr = np.cumsum([0] + [len(c) for c in self.children])
         blanket_ptr = np.cumsum([0] + [len(b) for b in self.blankets])
+        wave_ptr = np.cumsum([0] + [len(w) for w in self.waves])
         parts = [
             self.order, self.ploidy, self.parents.ravel(), self.tau.ravel(),
             child_ptr, [c for cs in self.children for c in cs],
             [x for pq in self.pairs for x in pq], blanket_ptr,
-            [m for b in self.blankets for m in b],
+            [m for b in self.blankets for m in b], wave_ptr,
         ]
         offsets = np.cumsum([0] + [len(x) for x in parts])[:-1]
         flat = np.concatenate([np.asarray(x, np.int64) for x in parts] + [np.zeros(1, np.int64)])
@@ -228,10 +251,10 @@ class Plan:
         return flat.astype(np.int32), [int(o) for o in offsets]
 
     def device_tables(self, device):
-        """(int table, f64 weights then log P for P = 0..8, offsets) on
-        ``device``, as the kernel reads them."""
+        """(int table, f64 weights then log P and log1p(P) for P = 0..8,
+        offsets) on ``device``, as the kernel reads them."""
         flat, offsets = self.ints()
-        weights = np.concatenate([self.weights.ravel(), _LOG_PLOIDY])
+        weights = np.concatenate([self.weights.ravel(), _LOG_PLOIDY, _LOG1P])
         return (
             torch.as_tensor(flat, device=device),
             torch.as_tensor(weights, dtype=torch.float64, device=device),
@@ -334,19 +357,49 @@ def load_library():
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 9  # rh counts freqs n_valid problem initial noise ints weights
-            + [ctypes.c_int] * 9  # the nine offsets into ints
+            + [ctypes.c_int] * 10  # the ten offsets into ints
             + [ctypes.c_void_p]  # trace
-            + [ctypes.c_int] * 8  # N S R H C maxp n_pairs n_steps
+            + [ctypes.c_int] * 9  # N S R H C maxp n_pairs n_waves n_steps
             + [ctypes.c_uint64]  # seed
             + [ctypes.c_int]  # warps per block
             + [ctypes.c_void_p]  # stream
         )
         lib.pedigree_sampler_smem_bytes.restype = ctypes.c_int64
-        lib.pedigree_sampler_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.pedigree_sampler_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.pedigree_sampler_max_warps.restype = ctypes.c_int
+        lib.pedigree_sampler_max_warps.argtypes = [ctypes.c_int]
         lib.pedigree_sampler_error_string.restype = ctypes.c_char_p
         lib.pedigree_sampler_error_string.argtypes = [ctypes.c_int]
         _lib = lib
         return lib
+
+
+def warps_per_block(n_chains, n_sms, max_warps, smem_bytes):
+    """Warps in each chain's block.  A chain's updates depend on each
+    other, so while every chain has an SM of its own, the most warps the
+    kernel takes (``max_warps``, 16 at ploidy <= 4; a block of that size
+    fills an SM's registers) shorten each step.  With more chains,
+    smaller blocks keep the resident warps busy: a 16-warp block idles
+    through its founders' serial sums.  Halve while the blocks would not
+    all be resident (down to 4), then while a block's shared memory
+    (``smem_bytes(warps)``) would not fit (down to 1).
+    """
+    warps = max_warps
+    while warps > 4 and n_chains * warps > n_sms * max_warps:
+        warps //= 2
+    while warps > 1 and smem_bytes(warps) > nvcc_build.MAX_SMEM:
+        warps //= 2
+    return warps
+
+
+def launch_warps(plan, n_chains, n_reads, device):
+    """``warps_per_block`` for ``plan`` on ``device`` (a card)."""
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return warps_per_block(
+        n_chains, sms, lib.pedigree_sampler_max_warps(plan.max_ploidy),
+        lambda w: lib.pedigree_sampler_smem_bytes(plan.n_samples, plan.max_ploidy, n_reads, w),
+    )
 
 
 def _launch(rh, counts, freqs, n_valid, problem, initial, plan, *, n_steps, seed, noise):
@@ -354,13 +407,13 @@ def _launch(rh, counts, freqs, n_valid, problem, initial, plan, *, n_steps, seed
     C = problem.shape[0]
     maxp = plan.max_ploidy
     lib = load_library()
-    per_warp = lib.pedigree_sampler_smem_bytes(S, maxp, R)
-    if per_warp > nvcc_build.MAX_SMEM:
+    warps = launch_warps(plan, C, R, rh.device)
+    smem = lib.pedigree_sampler_smem_bytes(S, maxp, R, warps)
+    if smem > nvcc_build.MAX_SMEM:
         raise ValueError(
-            f"chain state needs {per_warp} bytes of shared memory; at most"
+            f"chain state needs {smem} bytes of shared memory; at most"
             f" {nvcc_build.MAX_SMEM} fit in one block"
         )
-    warps = max(1, min(_WARPS_PER_BLOCK, nvcc_build.MAX_SMEM // per_warp))
     ints, weights, offsets = plan.device_tables(rh.device)
     trace = torch.empty((C, n_steps, S, maxp), dtype=torch.int16, device=rh.device)
     stream = torch.cuda.current_stream(rh.device).cuda_stream
@@ -369,7 +422,7 @@ def _launch(rh, counts, freqs, n_valid, problem, initial, plan, *, n_steps, seed
         problem.data_ptr(), initial.data_ptr(),
         None if noise is None else noise.data_ptr(), ints.data_ptr(),
         weights.data_ptr(), *offsets, trace.data_ptr(), N, S, R, H, C, maxp,
-        len(plan.pairs), n_steps, seed & 0xFFFFFFFFFFFFFFFF, warps, stream,
+        len(plan.pairs), len(plan.waves), n_steps, seed & 0xFFFFFFFFFFFFFFFF, warps, stream,
     )
     if err != 0:
         msg = lib.pedigree_sampler_error_string(err).decode()
@@ -386,31 +439,25 @@ _INV_FACT = [1.0 / math.factorial(e) for e in range(MAX_PLOIDY + 1)]
 _COMB = [[float(math.comb(n, k)) for k in range(MAX_PLOIDY + 1)] for n in range(MAX_PLOIDY + 1)]
 
 
-def _compositions(total, slots):
-    """Vectors of ``slots`` non-negative ints summing to ``total``, in the
-    kernel's odometer order (slot 0 fastest)."""
-    rows = [
-        (*head, total - sum(head))
-        for head in itertools.product(range(total + 1), repeat=slots - 1)
-        if sum(head) <= total
-    ]
-    return sorted(rows, key=lambda r: r[-2::-1])
-
-
-def _prod(x):
-    """Product over the last axis, in slot order."""
-    out = x[..., 0]
-    for j in range(1, x.shape[-1]):
-        out = out * x[..., j]
-    return out
+def _poly_mul(q, c, tmax):
+    """In place, q <- q * c truncated at degree ``tmax`` (q a list of
+    coefficient tensors, c [..., degree + 1]), added in K3's order."""
+    for t in range(min(tmax, len(q) - 1), -1, -1):
+        s = q[t] * c[..., 0]
+        for x in range(1, t + 1):
+            s = s + q[t - x] * c[..., x]
+        q[t] = s
 
 
 def trio_log_lin(prog, rp, rq, freqs, tau_p, tau_q, weights):
     """log trio pmf (lambda 0) of progeny rows prog i[..., P] given parent
     rows rp, rq (i[..., P_parent], None when missing) and linear
-    frequencies f64[..., H], by the linear four-branch mixture K3
-    computes; 0 -> ``NEG``.  Rows are summed per branch, so the sum runs
-    in another order than the kernel's (f64; a last-bit difference)."""
+    frequencies f64[..., H], operation for operation as K3 computes it:
+    D + A + B + C, where A and B sum over parent p's gamete compositions
+    and C over parent q's, each as the coefficient of z^tau of a product
+    over the slots of a polynomial in the gamete dose of the slot's
+    allele (a slot that repeats an earlier allele contributes 1); 0 ->
+    ``NEG``."""
     wa, wb, wc, wd = (float(w) for w in weights)
     P = prog.shape[-1]
     dev = prog.device
@@ -428,29 +475,30 @@ def trio_log_lin(prog, rp, rq, freqs, tau_p, tau_q, weights):
     for _ in range(P):
         powers.append(powers[-1] * f)
     powers = torch.stack(powers, -1)  # [..., P, P + 1]: f^e
-
-    def un(e):  # f^e / e!, e broadcast against [..., (K,) P]
-        pw = powers if e.dim() == d.dim() else powers[..., None, :, :]
-        pw = pw.expand(e.shape + (P + 1,))
-        return torch.gather(pw, -1, e[..., None])[..., 0] * inv_fact[e]
-
+    x = torch.arange(P + 1, device=dev)
+    e = d[..., None] - x  # [..., P, P + 1]: the dose left to the other gamete
+    ok = e >= 0
+    e = e.clamp(min=0)
+    uv = torch.where(ok, torch.gather(powers, -1, e) * inv_fact[e], 0.0)  # f^e / e!
+    c_a = comb[a[..., None], x]
+    polys = (
+        (torch.where(ok, c_a * comb[b[..., None], e], 0.0), int(tau_p)),  # A
+        (c_a * uv, int(tau_p)),  # B
+        (comb[b[..., None], x] * uv, int(tau_q)),  # C
+    )
+    one = torch.ones(prog.shape[:-1], dtype=torch.float64, device=dev)
+    qs = [[one] + [one * 0.0] * P for _ in polys]
+    pd = one
+    for j in range(P):
+        pd = pd * uv[..., j, 0]
+        for q, (c, tau) in zip(qs, polys):
+            _poly_mul(q, c[..., j, :], tau)
     total = torch.zeros(prog.shape[:-1], dtype=torch.float64, device=dev)
     if wd > 0:
-        total = total + wd * _prod(un(d))
-    if wa > 0 or wb > 0:
-        x = torch.as_tensor(_compositions(int(tau_p), P), device=dev)  # [K, P]
-        ok = torch.all(x <= torch.minimum(d, a)[..., None, :], -1)  # [..., K]
-        rest = torch.clamp(d[..., None, :] - x, min=0)
-        cp = _prod(comb[a[..., None, :], x])
-        if wa > 0:
-            total = total + torch.where(ok, wa * cp * _prod(comb[b[..., None, :], rest]), 0.0).sum(-1)
-        if wb > 0:
-            total = total + torch.where(ok, wb * cp * _prod(un(rest)), 0.0).sum(-1)
-    if wc > 0:
-        y = torch.as_tensor(_compositions(int(tau_q), P), device=dev)
-        ok = torch.all(y <= torch.minimum(d, b)[..., None, :], -1)
-        term = wc * _prod(comb[b[..., None, :], y]) * _prod(un(torch.clamp(d[..., None, :] - y, min=0)))
-        total = total + torch.where(ok, term, 0.0).sum(-1)
+        total = total + wd * pd
+    for w, q, (_, tau) in zip((wa, wb, wc), qs, polys):
+        if w > 0:
+            total = total + w * q[tau]
     return torch.where(total > 0, torch.log(total), NEG)
 
 
@@ -510,6 +558,7 @@ def pedigree_sampler_plain(rh, counts, freqs, n_valid, problem, initial, plan, *
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
     pair_base = S * maxp * H
+    log1p = torch.as_tensor(_LOG1P, device=device)
 
     def uniforms(step, start, n):
         if noise is not None:
@@ -548,9 +597,9 @@ def pedigree_sampler_plain(rh, counts, freqs, n_valid, problem, initial, plan, *
                 for group in plan.child_groups[s]:
                     prior = prior + trio(group, over, cand=True)
                 copies = sum(
-                    (rows[:, j, None] == alleles).double() for j in range(P) if j != k
-                ) if P > 1 else torch.zeros((C, H), dtype=torch.float64, device=device)
-                logit = llk + prior + torch.log1p(copies)
+                    (rows[:, j, None] == alleles).long() for j in range(P) if j != k
+                ) if P > 1 else torch.zeros((C, H), dtype=torch.long, device=device)
+                logit = llk + prior + log1p[copies]
                 u = uniforms(step, (s * maxp + k) * H, H).double()
                 score = torch.where(valid, logit - torch.log(-torch.log(u)), -math.inf)
                 g[:, s, k] = torch.argmax(score, dim=1)

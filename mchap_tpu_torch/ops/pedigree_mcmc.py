@@ -230,13 +230,10 @@ def trio_log_pmf(progeny, parent_p, parent_q, ploidy_p, ploidy_q, tau_p, tau_q,
 # ---------------------------------------------------------------------------
 
 
-def chromatic_colors(sample_parents):
-    """Greedy coloring of the pedigree's moral graph.
-
-    Two samples share a color only if neither is in the other's Markov
-    blanket (parent, child or co-parent); a color's conditionals are then
-    independent given the rest, and the color updates as one batch.
-    """
+def markov_blankets(sample_parents):
+    """Each sample's Markov blanket in the pedigree's moral graph: its
+    parents, its children and its children's other parents (a set each;
+    symmetric)."""
     sample_parents = np.asarray(sample_parents)
     n = len(sample_parents)
     adj = [set() for _ in range(n)]
@@ -249,6 +246,18 @@ def chromatic_colors(sample_parents):
         if p >= 0 and q >= 0:
             adj[int(p)].add(int(q))
             adj[int(q)].add(int(p))
+    return adj
+
+
+def chromatic_colors(sample_parents):
+    """Greedy coloring of the pedigree's moral graph.
+
+    Two samples share a color only if neither is in the other's Markov
+    blanket (parent, child or co-parent); a color's conditionals are then
+    independent given the rest, and the color updates as one batch.
+    """
+    adj = markov_blankets(sample_parents)
+    n = len(adj)
     colors = []
     for i in sorted(range(n), key=lambda x: -len(adj[x])):
         for group in colors:
