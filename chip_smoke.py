@@ -2,11 +2,12 @@
 
 Usage: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 
-Builds the port's three CUDA kernel libraries from ``mchap_tpu_torch/csrc``
-in parallel -- ``denovo_sampler.cu`` (K1, the de novo sampler, and K0,
-one mutation sweep), ``calling_sampler.cu`` (K2, the calling sampler)
-and ``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) -- and runs
-thirteen phases, each printing one line:
+Builds the port's CUDA kernel libraries from ``mchap_tpu_torch/csrc``
+in parallel -- ``denovo_sampler.cu`` twice (K1, the de novo sampler,
+flat with K0, one mutation sweep; and K1 with its tempering ladder and
+prior), ``calling_sampler.cu`` (K2, the calling sampler) and
+``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) -- and runs
+eighteen phases, each printing one line:
 
 A. K1 vs its plain PyTorch version on the card, pinned noise;
 B. K1 with its own Philox stream vs exact enumeration;
@@ -27,7 +28,16 @@ K. K3 with its own Philox stream vs exact enumeration of small pedigrees;
 L. ``mchap call-pedigree`` end to end on a synthetic 2 + 20 tetraploid
    family over 20 loci, counting K3 launches;
 M. K3 and plain throughput at the pedigree bench shape, with K3's waves
-   and warps per block.
+   and warps per block;
+N. K1 vs its plain version in its tempered and prior modes (T = 3 flat,
+   T = 1 with alpha, T = 3 with alpha, and phase P's T = 2, flat and
+   with dispersions at phase P's size), pinned noise;
+O. K1 with its own Philox stream in those modes vs exact enumeration;
+P. ``mchap assemble --mcmc-temperatures 0.5 1.0 --use-dirmul-prior 0.1``
+   end to end on phase C's data, counting K1 launches;
+Q. K1 throughput at phase D's shape with 4 rungs and the prior;
+R. ``call``'s model at ploidy 9 takes the torch sampler, chosen before
+   any launch: K2's launch count does not move.
 
 Each kernel's least time on the card (``bound_ms``) is the largest of
 its f32 operations over 67 TFLOP/s, its f64 operations over 33.5
@@ -82,8 +92,9 @@ def _time_cuda(fn, repeats):
     return start.elapsed_time(stop) / repeats
 
 
-def _problems(rng, n_problems, P, NB, A, R, error_rate=0.0024):
-    """Per-problem log reads [S, NB, A, R] simulated from random haplotypes."""
+def _problems(rng, n_problems, P, NB, A, R, error_rate=0.0024, n_distinct=None):
+    """Per-problem log reads [S, NB, A, R] simulated from random haplotypes
+    (``n_distinct`` of them, each repeated, when given)."""
     import numpy as np
     import torch
 
@@ -92,7 +103,7 @@ def _problems(rng, n_problems, P, NB, A, R, error_rate=0.0024):
 
     lr = np.zeros((n_problems, NB, A, R), np.float32)
     for s in range(n_problems):
-        haps = rng.integers(0, A, size=(P, NB))
+        haps = rng.integers(0, A, size=(n_distinct or P, NB))[np.arange(P) % (n_distinct or P)]
         reads = simulate_reads(
             haps, n_alleles=A, n_reads=R, errors=True, error_rate=error_rate,
             seed=int(rng.integers(1 << 30)),
@@ -101,11 +112,11 @@ def _problems(rng, n_problems, P, NB, A, R, error_rate=0.0024):
     return lr
 
 
-def _inputs(rng, S, P, NB, A, R, C, device):
+def _inputs(rng, S, P, NB, A, R, C, device, **reads):
     import numpy as np
     import torch
 
-    lr = _problems(rng, S, P, NB, A, R)
+    lr = _problems(rng, S, P, NB, A, R, **reads)
     prob = (np.arange(C) % S).astype(np.int32)
     g0 = rng.integers(0, A, size=(P, NB, C)).astype(np.int32)
     nall = np.full((S, NB), A, np.int32)
@@ -156,7 +167,8 @@ def phase_a(device):
         gen.manual_seed(A)
         noise = torch.rand((STEPS, D, C), generator=gen, device=device)
         t_k, l_k = K.denovo_sampler(*args, n_steps=STEPS, noise=noise)
-        t_p, l_p = K.denovo_sampler_plain(*args, n_steps=STEPS, noise=noise)
+        with torch.inference_mode():  # less dispatch work per plain-version op
+            t_p, l_p = K.denovo_sampler_plain(*args, n_steps=STEPS, noise=noise)
         torch.cuda.synchronize()
         same = (t_k == t_p).all(dim=0).all(dim=0)  # [C]
         frac = same.float().mean().item()
@@ -273,8 +285,9 @@ def _truth_agreement(records, truth):
     return agree, total
 
 
-def phase_c(device, extra=()):
-    """``mchap assemble`` at default settings through the CLI entry point.
+def phase_c(device, extra=(), label="C", out_name="out.vcf"):
+    """``mchap assemble`` at default settings through the CLI entry point
+    (phase P adds ``extra`` options).
 
     Synthetic dataset at the size of the reference's bundled bi-parental
     example: 22 tetraploid samples, 20 loci, 866 SNVs (5 triallelic),
@@ -282,6 +295,8 @@ def phase_c(device, extra=()):
     default rate, genotypes drawn from 6 founder haplotypes per locus
     that differ from the reference at 6 SNVs each.
     """
+    from mchap_tpu_torch.utils import fallback
+
     sys.path.insert(0, str(ROOT / "tests"))
     from test_torch_fixtures import parse_vcf_records, write_dataset
 
@@ -301,22 +316,26 @@ def phase_c(device, extra=()):
         "--reference", data["reference"], *extra,
     ]
     rc, vcf, wall, launches, timers = _run_cli(argv)
-    data["assembled"] = WORK / "assemble" / "out.vcf"
+    data["assembled"] = WORK / "assemble" / out_name
     data["assembled"].write_text(vcf)
     records = parse_vcf_records(vcf)
     agree, total = _truth_agreement(records, data["truth"])
     frac = agree / max(total, 1)
     k1 = launches["denovo_sampler"]
+    # every de novo sampling ran K1: the port has no other sampler route
+    routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
     print(
-        f"phase C: assemble exit {rc}, {len(records)} records, K1 launches"
-        f" {k1}, GT == truth {agree}/{total} = {frac:.4f} (bound 0.90);"
-        f" wall {wall:.2f} s = {n_loci / wall:.3f} loci/s",
+        f"phase {label}: assemble{''.join(' ' + e for e in extra)} exit {rc}, {len(records)}"
+        f" records, K1 launches {k1}, de novo routes {routes}, GT == truth"
+        f" {agree}/{total} = {frac:.4f} (bound 0.90); wall {wall:.2f} s ="
+        f" {n_loci / wall:.3f} loci/s",
         flush=True,
     )
     for line in timers.summary_lines():
-        print("phase C timing:", line, flush=True)
-    if rc != 0 or len(records) != n_loci or k1 < 1 or total != 440 or frac < 0.90:
-        _fail("phase C")
+        print(f"phase {label} timing:", line, flush=True)
+    if (rc != 0 or len(records) != n_loci or k1 < 1 or routes != ["cuda"]
+            or total != 440 or frac < 0.90):
+        _fail(f"phase {label}")
     return launches, data
 
 
@@ -325,20 +344,27 @@ def _work(flops, transcendentals, nbytes):
                 bytes=float(nbytes))
 
 
-def _denovo_work(P, NB, A, R, S, C, T, trace_bytes):
-    """K1 per launch, counted from denovo_sampler.cu: every site's
-    candidate pass of the mutation sweep (per read and option: 10 f32
-    operations, expf and log1pf; a 5-step butterfly per option), the
-    other rows' logsumexp per row, and the interval sums of stage 2.
-    Accepted moves and gated structural steps depend on the data and
-    are left out."""
+def _denovo_work(P, NB, A, R, S, C, T, trace_bytes, rungs=1, prior=False):
+    """K1 per launch of T steps, counted from denovo_sampler.cu: every
+    site's candidate pass of the mutation sweep (per read and option: 10
+    f32 operations, expf and log1pf; a 5-step butterfly per option), the
+    other rows' logsumexp per row, and the interval sums of stage 2; with
+    the prior, per option two more logf and six f32 operations; all of it
+    once per rung, and per step each of the rungs - 1 swaps' four f32
+    operations and expf.  Accepted moves, gated structural steps and
+    their prior terms depend on the data and are left out."""
     per_step_flops = (
         P * NB * (A - 1) * (10 * R + 5 * 32) + P * R * (3 * P - 2) + P * NB * R
     )
     per_step_tr = P * NB * (A - 1) * 2 * R + P * R * P
+    if prior:
+        per_step_flops += P * NB * (A - 1) * 6
+        per_step_tr += P * NB * (A - 1) * 2
+    per_step_flops = per_step_flops * rungs + 4 * (rungs - 1)
+    per_step_tr = per_step_tr * rungs + (rungs - 1)
     nbytes = (
         4 * (S * NB * A * R + S * R + S * NB + S + C + P * NB * C + T * C)
-        + trace_bytes * T * NB * C
+        + 4 * S * prior + trace_bytes * T * NB * C
     )
     return _work(per_step_flops * C * T, per_step_tr * C * T, nbytes)
 
@@ -766,7 +792,8 @@ def phase_j(device):
                            device=device).clamp_(min=1e-12)
         args = (rh, counts, freqs, nv, prob, init, plan)
         t_k = K3.pedigree_sampler(*args, n_steps=steps, noise=noise)
-        t_p = K3.pedigree_sampler_plain(*args, n_steps=steps, noise=noise)
+        with torch.inference_mode():  # less dispatch work per plain-version op
+            t_p = K3.pedigree_sampler_plain(*args, n_steps=steps, noise=noise)
         torch.cuda.synchronize()
         same = (t_k == t_p).flatten(1).all(1)
         frac = same.float().mean().item()
@@ -975,6 +1002,236 @@ def phase_m(device, card):
     return out
 
 
+TEMPERED_DIRMUL = ["--mcmc-temperatures", "0.5", "1.0", "--use-dirmul-prior", "0.1"]
+PHASE_P_ALPHAS = "phase P's"
+MODES = (
+    # (label, ladder, alpha, chains): phase N's tempered and prior modes.
+    # T = 2 is phase P's ladder, the one layout with two chains per block.
+    ("T=3 flat", [0.33, 0.66, 1.0], None, 1024),
+    ("T=1 alpha 0.05", None, 0.05, 1024),
+    ("T=3 alpha 0.05", [0.33, 0.66, 1.0], 0.05, 1024),
+    ("T=2 flat", [0.5, 1.0], None, 2048),
+    ("T=2 alphas 9/A^n", [0.5, 1.0], PHASE_P_ALPHAS, 2048),
+)
+
+
+def _phase_p_alphas(S, A):
+    """Per-problem dispersions at phase P's size: ``models/assemble.py``
+    gives (1 - F) / F over the product of the allele counts of the
+    heterozygous positions, here F = 0.1 and 4..16 positions of A
+    alleles (9/2^16 = 1.4e-4 at A = 2)."""
+    return [(1 - 0.1) / 0.1 / A ** (4 + s % 13) for s in range(S)]
+
+
+def phase_n(device, STEPS=300):
+    """K1 vs its plain version in its tempered and Dirichlet-multinomial
+    modes, same pinned noise, bounds as phase A.
+
+    Each problem's 64 reads come from two distinct haplotypes (an inbred
+    sample) at 15% base error.  Only there does the prior decide moves:
+    it weighs rows that are equal over every position, which random
+    haplotypes over 16 SNVs seldom give, and sharp reads outweigh it.
+    So each prior mode also runs the kernel without the prior on the
+    same noise and fails unless some chain's trace differs."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_denovo as K
+
+    P, NB, R, S = 4, 16, 64, 16
+    worst = 0.0
+    for label, temps, alpha, C in MODES:
+        for A in (2, 3):
+            rng = np.random.default_rng(200 + A)
+            args = _inputs(rng, S, P, NB, A, R, C, device, error_rate=0.15, n_distinct=2)
+            T = 1 if temps is None else len(temps)
+            D = K.draw_layout(P, NB, T)["D"]
+            gen = torch.Generator(device=device)
+            gen.manual_seed(A + 10 * T)
+            noise = torch.rand((STEPS, D, C), generator=gen, device=device)
+            if alpha == PHASE_P_ALPHAS:
+                alpha_t = torch.tensor(_phase_p_alphas(S, A), device=device)
+            else:
+                alpha_t = None if alpha is None else torch.full((S,), alpha, device=device)
+            kw = dict(n_steps=STEPS, noise=noise, temps=temps, alpha=alpha_t)
+            t_k, l_k = K.denovo_sampler(*args, **kw)
+            with torch.inference_mode():  # less dispatch work per plain-version op
+                t_p, l_p = K.denovo_sampler_plain(*args, **kw)
+            torch.cuda.synchronize()
+            same = (t_k == t_p).all(dim=0).all(dim=0)  # [C]
+            frac = same.float().mean().item()
+            err = (l_k - l_p).abs()[:, same].max().item()
+            rec = _recompute_llks(t_k, args[0], args[5], P, A)
+            rec_err = (rec - l_k.double()).abs().max().item()
+            moved = (t_k[1:] != t_k[:-1]).any(dim=1).float().mean().item()
+            by_prior = 1.0
+            if alpha_t is not None:
+                t_f, _ = K.denovo_sampler(*args, **dict(kw, alpha=None))
+                by_prior = (t_k != t_f).any(dim=0).any(dim=0).float().mean().item()
+            print(
+                f"phase N ({label}, A={A}): identical chains {frac:.4f} of {C} over"
+                f" {STEPS} steps; llk |kernel-plain| on them {err:.3g} (bound 1e-3);"
+                f" cold llk vs recompute {rec_err:.3g} (bound 1e-2); steps that"
+                f" changed the cold genotype {moved:.3f}"
+                + (f"; chains the prior changed {by_prior:.3f} (bound > 0)"
+                   if alpha_t is not None else ""),
+                flush=True,
+            )
+            if frac < 0.99 or err > 1e-3 or rec_err > 1e-2 or by_prior == 0:
+                _fail(f"phase N ({label}, A={A})")
+            worst = max(worst, err)
+    return worst
+
+
+def _gate_problem(n_reads, qual):
+    """P4 over 2 biallelic SNVs: reads of scripts/gate_pallas_denovo.py's
+    genotype, the exact log likelihood of every genotype over the four
+    haplotypes, and the read tensor K1 takes."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import exact
+    from mchap_tpu_torch.ops.likelihood import prepare_reads
+    from mchap_tpu_torch.testing import simulate_reads
+
+    haplotypes = np.array([[0, 0], [0, 1], [1, 1], [0, 0]], np.int8)
+    reads = simulate_reads(
+        haplotypes, n_alleles=2, n_reads=n_reads, errors=False, uniform_sample=True,
+        qual=qual, seed=11,
+    )
+    panel = np.array([[0, 0], [0, 1], [1, 0], [1, 1]], np.int8)
+    llks = exact.genotype_likelihoods(reads, 4, panel)
+    lr = prepare_reads(reads, dtype=torch.float32).permute(1, 2, 0)[None].contiguous()
+    return llks, lr
+
+
+def phase_o(device, C=1024, STEPS=1500, BURN=300):
+    """K1 with its own Philox stream vs exact enumeration (TV < 0.03) in
+    the tempered and prior modes: the gate problem with ladder [0.33,
+    0.66, 1.0], with the prior at F = 0.3, and with both; then at 6 reads
+    of quality 12-16 and F = 0.5, where the prior moves the posterior."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.numerics.combinadics import (
+        enumerate_genotypes,
+        genotype_alleles_as_index,
+    )
+    from mchap_tpu_torch.ops import cuda_denovo as K
+    from mchap_tpu_torch.ops import exact
+    from mchap_tpu_torch.ops.priors import log_genotype_prior
+
+    P, NB, A = 4, 2, 2
+    ladder = [0.33, 0.66, 1.0]
+    table = torch.tensor(enumerate_genotypes(4, P))
+    worst = 0.0
+    for label, n_reads, qual, temps, F in (
+        ("tempered", 8, (20, 20), ladder, None),
+        ("prior F=0.3", 8, (20, 20), None, 0.3),
+        ("both F=0.3", 8, (20, 20), ladder, 0.3),
+        ("prior F=0.5, 6 reads", 6, (12, 16), None, 0.5),
+        ("both F=0.5, 6 reads", 6, (12, 16), ladder, 0.5),
+    ):
+        llks, lr = _gate_problem(n_reads, qual)
+        flat = exact.genotype_posteriors(llks).numpy()
+        want = flat if F is None else exact.genotype_posteriors(
+            llks + log_genotype_prior(table, 4, inbreeding=F)).numpy()
+        rng = np.random.default_rng(0)
+        trace, _ = K.denovo_sampler(
+            lr.to(device), torch.ones((1, lr.shape[-1]), device=device),
+            torch.from_numpy(rng.integers(0, A, size=(P, NB, C)).astype(np.int32)).to(device),
+            torch.full((1, NB), A, dtype=torch.int32, device=device),
+            torch.full((1,), 0.25, device=device),
+            torch.zeros(C, dtype=torch.int32, device=device),
+            n_steps=STEPS, seed=11, temps=temps,
+            # alpha = (1 - F) / F / u_haps over the 4 haplotypes
+            alpha=None if F is None else torch.full((1,), (1 - F) / F / 4, device=device),
+        )
+        g = K.unpack_genotype_trace(trace.cpu().numpy()[BURN:], P, A)
+        codes = np.sort(g[:, :, 0, :] * 2 + g[:, :, 1, :], axis=1)
+        idx = genotype_alleles_as_index(codes.transpose(0, 2, 1).reshape(-1, P))
+        got = np.bincount(idx, minlength=len(want)).astype(float)
+        got /= got.sum()
+        tv = 0.5 * np.abs(got - want).sum()
+        apart = 0.5 * np.abs(flat - want).sum()
+        print(f"phase O ({label}): TV(kernel, exact) = {tv:.4f} (bound 0.03);"
+              f" TV(exact flat, exact target) = {apart:.4f}", flush=True)
+        if not tv < 0.03:
+            _fail(f"phase O ({label})")
+        worst = max(worst, tv)
+    return worst
+
+
+def phase_q(device, card, C=16384, STEPS=200):
+    """K1 and plain throughput at phase D's shape with 4 rungs and the
+    prior."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_denovo as K
+
+    P, NB, A, R, S = 4, 16, 2, 64, 64
+    temps = [0.25, 0.5, 0.75, 1.0]
+    rng = np.random.default_rng(7)
+    args = _inputs(rng, S, P, NB, A, R, C, device)
+    kw = dict(temps=temps, alpha=torch.full((S,), 0.05, device=device))
+    K.denovo_sampler(*args, n_steps=2, **kw)  # warm-up
+    k_ms = _time_cuda(lambda: K.denovo_sampler(*args, n_steps=STEPS, seed=3, **kw), 3)
+    plain_steps = 5
+    K.denovo_sampler_plain(*args, n_steps=1, **kw)
+    p_ms = _time_cuda(
+        lambda: K.denovo_sampler_plain(*args, n_steps=plain_steps, seed=3, **kw), 1
+    )
+    work = _denovo_work(P, NB, A, R, S, C, STEPS, 1, rungs=len(temps), prior=True)
+    bound_ms, bound_by = _bound(work, card)
+    print(
+        f"phase Q: {C} chains x {len(temps)} rungs P{P} NB{NB} A{A} R{R}, prior:"
+        f" kernel {k_ms:.1f} ms for {STEPS} steps = {k_ms / STEPS:.3f} ms per step ="
+        f" {C * STEPS / (k_ms / 1e3):.4g} chain-steps/s; plain {p_ms:.1f} ms for"
+        f" {plain_steps} steps = {C * plain_steps / (p_ms / 1e3):.4g} chain-steps/s;"
+        f" bound {bound_ms:.3f} ms by {bound_by} ({work['flops']:.3g} flops,"
+        f" {work['transcendentals']:.3g} exp/log, {work['bytes']:.3g} bytes),"
+        f" kernel at {bound_ms / k_ms:.2%} of it",
+        flush=True,
+    )
+    return dict(modes_ms=k_ms / STEPS, modes_plain_ms=p_ms / plain_steps,
+                modes_bound_ms=bound_ms / STEPS, modes_bound_by=bound_by)
+
+
+def phase_r(device):
+    """``fit_calling_batch`` routes before any launch: at ploidy 4 to K2,
+    at ploidy 9 (outside K2) to the torch sampler, K2's count unmoved."""
+    import numpy as np
+
+    from mchap_tpu_torch.models.calling import fit_calling_batch
+    from mchap_tpu_torch.testing import simulate_reads
+    from mchap_tpu_torch.utils import fallback
+
+    rng = np.random.default_rng(9)
+    panel = rng.integers(0, 2, size=(6, 5)).astype(np.int8)
+    out = {}
+    for ploidy in (4, 9):
+        reads = [simulate_reads(panel[rng.integers(0, 6, ploidy)], n_alleles=2,
+                                n_reads=40, seed=i) for i in range(3)]
+        fallback.PATHS.clear()
+        _reset_launches()
+        traces = fit_calling_batch(
+            ploidy, panel, reads, [np.ones(len(r)) for r in reads], steps=60,
+            chains=2, random_seed=1, device=device,
+        )
+        k2 = _launches()["calling_sampler"]
+        paths = sorted(path for (site, path) in fallback.PATHS if site == "calling")
+        shapes = sorted({t.genotypes.shape for t in traces})
+        finite = all(np.isfinite(t.llks).all() for t in traces)
+        print(f"phase R (ploidy {ploidy}): K2 launches {k2}, calling routes {paths},"
+              f" trace shapes {shapes}, llks finite {finite}", flush=True)
+        out[ploidy] = (k2, paths, shapes, finite)
+    if (out[4][:2] != (1, ["cuda"]) or out[9][:3] != (0, ["torch"], [(2, 60, 9)])
+            or not (out[4][3] and out[9][3])):
+        _fail("phase R")
+    return out
+
+
 def _card():
     """Name and power limit line, SM count and special-function rate."""
     import torch
@@ -990,25 +1247,31 @@ def _card():
 
 
 def _build_all():
-    """Build the three kernel libraries at once (one nvcc each), then
-    print each build's time and ptxas's register lines."""
+    """Build the four kernel libraries at once (one nvcc each; K1's
+    source twice, flat with K0 and with its ladder), then print each
+    build's time and ptxas's register lines."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mchap_tpu_torch.ops import cuda_calling as KC
     from mchap_tpu_torch.ops import cuda_denovo as K
     from mchap_tpu_torch.ops import cuda_pedigree as K3
 
-    def timed(mod):
+    def timed(load):
         t0 = time.perf_counter()
-        mod.load_library()
+        load()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
-        times = list(pool.map(timed, (K, KC, K3)))
-    for name, mod, t in (("K1/K0", K, times[0]), ("K2", KC, times[1]),
-                         ("K3", K3, times[2])):
+    builds = (
+        ("K1 flat/K0", K.load_library, K.build_log_path()),
+        ("K1 ladder", lambda: K.load_library(ladder=True), K.build_log_path(ladder=True)),
+        ("K2", KC.load_library, KC.build_log_path()),
+        ("K3", K3.load_library, K3.build_log_path()),
+    )
+    with ThreadPoolExecutor(len(builds)) as pool:
+        times = list(pool.map(timed, [load for _, load, _ in builds]))
+    for (name, _, log), t in zip(builds, times):
         print(f"build: {name} built and loaded in {t:.1f} s", flush=True)
-        for line in mod.build_log_path().read_text().splitlines():
+        for line in log.read_text().splitlines():
             spills = "stack frame" in line and not line.split(":")[-1].strip().startswith("0 bytes")
             if ("Used" in line and "registers" in line) or spills:
                 print(f"ptxas ({name}):", line.split("info    :")[-1].strip())
@@ -1049,6 +1312,12 @@ def main():
         ("K", lambda: phase_k(device)),
         ("L", lambda: phase_l(device)),
         ("M", lambda: phase_m(device, card)),
+        ("N", lambda: phase_n(device)),
+        ("O", lambda: phase_o(device)),
+        ("P", lambda: phase_c(device, TEMPERED_DIRMUL, label="P",
+                              out_name="out_options.vcf")),
+        ("Q", lambda: phase_q(device, card)),
+        ("R", lambda: phase_r(device)),
     ]
     for name, run in runners:
         t = time.perf_counter()
@@ -1062,7 +1331,8 @@ def main():
         dict(name="denovo_sampler", source="mchap_tpu_torch/csrc/denovo_sampler.cu",
              replaces="mchap_tpu/ops/pallas_denovo.py:270",
              launches=main_paths[0]["denovo_sampler"], max_abs_err=results["A"],
-             **results["D"]),
+             **results["D"], modes_launches=results["P"][0]["denovo_sampler"],
+             modes_max_abs_err=results["N"], **results["Q"]),
         dict(name="calling_sampler", source="mchap_tpu_torch/csrc/calling_sampler.cu",
              replaces="mchap_tpu/ops/pallas_calling.py:55",
              launches=main_paths[1]["calling_sampler"], max_abs_err=results["E"],

@@ -38,9 +38,9 @@ from mchap_tpu_torch.io.util import qual_of_prob
 from mchap_tpu_torch.models.assemble import (
     DenovoMCMC,
     call_posterior_haplotypes,
-    check_supported,
     fit_denovo_batch,
     fit_denovo_multi,
+    refuse_unsupported,
 )
 from mchap_tpu_torch.numerics.combinadics import (
     count_unique_genotypes,
@@ -79,8 +79,12 @@ class program(baseclass.program):
             sys.exit(1)
         args = parser.parse_args(command[2:])
         arguments = collect_assemble_mcmc_program_arguments(args)
-        for temps in arguments["sample_mcmc_temperatures"].values():
-            check_supported(arguments["sample_inbreeding"] is not None, temps)
+        inbreeding = arguments["sample_inbreeding"]
+        for sample, temps in arguments["sample_mcmc_temperatures"].items():
+            refuse_unsupported(
+                arguments["sample_ploidy"][sample], None, 0, len(temps),
+                None if inbreeding is None else list(inbreeding.values()),
+            )
         arguments["device"] = resolve_device(arguments["device"])
         return cls(cli_command=command, **arguments)
 

@@ -1,7 +1,7 @@
 """``mchap call-pedigree``: pedigree-informed joint genotype calling.
 
 Reference: mchap/application/call_pedigree.py (experimental tool); port
-of ``mchap_tpu_torch/application/call_pedigree.py``.  Every locus of a block
+of ``mchap_tpu/application/call_pedigree.py``.  Every locus of a block
 runs through one launch of the pedigree sampler
 (``models/pedigree.fit_pedigree_multi``): K3 at the defaults, the torch
 joint sampler for double reduction, other gamete ploidies or

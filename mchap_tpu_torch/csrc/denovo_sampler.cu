@@ -23,18 +23,43 @@
 // log-read tensor lr[S, NB, A, R] is shared by all chains of a problem and
 // is read from L2/L1, never replicated per chain.
 //
-// Layout: one warp per chain, lanes striding over reads.  Every sum over
-// reads is a 5-step xor-butterfly of warp shuffles, so all lanes hold the
-// bitwise-identical total (IEEE addition commutes) and take the same MH
-// decision without a block barrier or a broadcast.  A chain's state lives
-// in shared memory: genotype g[P][NB] (int8), rh[P][R] and the interval
-// sums rhi[P][R] (f32), each read owned by one lane.  Several chain-warps
-// per block and many blocks per SM hide the reduction latency.  The
-// structural sweeps accumulate every option's per-read candidate term in
-// registers in one pass over reads (ploidy is a template parameter, so
+// Layout: one warp per chain rung, lanes striding over reads.  Every sum
+// over reads is a 5-step xor-butterfly of warp shuffles, so all lanes hold
+// the bitwise-identical total (IEEE addition commutes) and take the same
+// MH decision without a block barrier or a broadcast.  A rung's state
+// lives in a slot of shared memory: genotype g[P][NB] (int8), rh[P][R] and
+// the interval sums rhi[P][R] (f32), each read owned by one lane.  Several
+// chain-warps per block and many blocks per SM hide the reduction latency.
+// The structural sweeps accumulate every option's per-read candidate term
+// in registers in one pass over reads (ploidy is a template parameter, so
 // option tables unroll), then reduce them together.  Uniform draws come
 // from Philox4x32-10, key (seed, chain), counter (step, draw index), or
 // from a pinned noise[n_steps][D][C] tensor in tests.
+//
+// Tempering (the JAX kernel's n_temps > 1): a chain's T rungs are T
+// consecutive warps of one block, rung t drawing from indices t * Dr ..
+// and scaling every MH log ratio by temps[t].  After each step the rungs
+// meet at a named barrier of their own (bar.sync 1 + chain, 32 * T), one
+// lane runs the warm-to-cold neighbour swaps, exchanging the rungs' slot
+// indices, llks and priors (a pointer swap: rh and g stay where they
+// are), and a second barrier hands each rung its new slot.  Only the
+// cold rung writes the trace.  Barriers are per chain, so a chain past C
+// still leaves early without stalling another chain.  The ladder and the
+// prior run in their own instance (denovo_ladder_kernel, 8-warp blocks
+// for T = 8); the flat single-rung chain keeps an instance without them
+// (denovo_kernel), whose registers and stack they would otherwise cost.
+// The source is built twice, at once: by default into the library of
+// denovo_kernel and K0, and with -DK1_LADDER into that of
+// denovo_ladder_kernel; both export denovo_sampler_launch.
+//
+// Dirichlet-multinomial prior (the JAX kernel's use_prior): with per-
+// problem dispersions alpha, the mutation ratio gains log(count_cur) -
+// log(count_a) + log(count_a - 1 + alpha) - log(count_cur - 1 + alpha),
+// and each structural option prior_S(new) - prior_S(cur), prior_S summing
+// t(d) = sum_{k<d} log(alpha + k) - log d! (a table per chain) over the
+// distinct rows of dosage d, read from the pairwise full-row equality
+// masks that the structural step already forms.  Both sit inside the
+// temperature factor, in the JAX kernel's f32 operation order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,11 +70,14 @@ namespace {
 constexpr float kNegBig = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+constexpr int kMaxTemps = 8;
+
 struct Params {
   const float* lr;       // [S][NB][A][R]
   const float* counts;   // [S][R]
   const int* nall;       // [S][NB]
   const float* pbreak;   // [S]
+  const float* alpha;    // [S] DM dispersion, or null for the flat prior
   const int* problem;    // [C]
   const int* g_init;     // [P][NB][C]
   const float* noise;    // [n_steps][D][C] or null
@@ -59,8 +87,10 @@ struct Params {
   float p_recomb, p_partial, p_full;
   int refresh, stage, out_bytes;
   uint64_t seed;
-  int warps;             // chain-warps per block
-  int maxseg, D;
+  int warps;             // rung-warps per block: whole chains of T warps
+  int T;                 // rungs per chain
+  float temps[kMaxTemps];  // ascending inverse temperatures, temps[T-1] = 1
+  int maxseg, Dr, D;     // draws per rung; per step (T * Dr + T - 1)
   int smem_floats;       // per-warp float words (2*P*R), rounded
   int smem_bytes;        // per-warp bytes
 };
@@ -94,6 +124,9 @@ __device__ __forceinline__ uint32_t philox_word(uint32_t c0, uint32_t c1,
 struct Chain {
   const Params* p;
   int c, lane, s;
+  int rung_off;          // first draw index of this rung: rung * Dr
+  const float* tab;      // DM prior's t(d), d = 0..P, or null (flat)
+  float alpha;
   const float* lr;
   const float* cnt;
   const int* nall;
@@ -105,15 +138,89 @@ struct Chain {
   __device__ float lrv(int j, int a, int r) const {
     return __ldg(lr + ((size_t)(j * p->A + a)) * p->R + r);
   }
-  __device__ float uni(int step, int d) const {
-    if (p->noise) return __ldg(p->noise + ((size_t)step * p->D + d) * p->C + c);
+  // draw `idx` of the step, over all rungs and swaps
+  __device__ float uni_at(int step, int idx) const {
+    if (p->noise) return __ldg(p->noise + ((size_t)step * p->D + idx) * p->C + c);
     uint32_t seed_lo = (uint32_t)p->seed;
     uint32_t seed_hi = (uint32_t)(p->seed >> 32);
-    uint32_t bits = philox_word((uint32_t)step, (uint32_t)(d >> 2), seed_hi,
-                                seed_lo, (uint32_t)c, d & 3);
+    uint32_t bits = philox_word((uint32_t)step, (uint32_t)(idx >> 2), seed_hi,
+                                seed_lo, (uint32_t)c, idx & 3);
     return fmaxf((float)(bits >> 9) * (1.0f / 8388608.0f), 1e-12f);
   }
+  // draw `d` of this rung's step
+  __device__ float uni(int step, int d) const { return uni_at(step, rung_off + d); }
 };
+
+// t(d) = sum_{k<d} log(alpha + k) - log d! for d = 0..P, added and
+// subtracted in the JAX kernel's order (t_of in _make_full_kernel)
+template <int P>
+__device__ void prior_table(float alpha, float* tab) {
+  float la[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) la[k] = logf(alpha + (float)k);
+  tab[0] = 0.f;
+#pragma unroll
+  for (int d = 1; d <= P; ++d) {
+    float s = 0.f;
+    for (int k = 0; k < d; ++k) s = __fadd_rn(s, la[k]);
+    for (int m = 2; m <= d; ++m) s = __fsub_rn(s, logf((float)m));
+    tab[d] = s;
+  }
+}
+
+// prior_S: t(d) of each distinct row in row order; eq[h] bit j set when
+// rows h and j are equal over the whole genotype (eq symmetric, eq[h]
+// bit h set)
+template <int P>
+__device__ float prior_sum(const uint32_t* eq, const float* tab) {
+  float s = 0.f;
+#pragma unroll
+  for (int h = 0; h < P; ++h)
+    if ((eq[h] & ((1u << h) - 1u)) == 0u) s = __fadd_rn(s, tab[__popc(eq[h])]);
+  return s;
+}
+
+// prior_S of the genotype after option (a, b) of KIND: row i becomes row
+// src[i] inside the interval and stays row i outside it.  Not inlined,
+// like count_options: it runs once per valid option.
+template <int P, int KIND>
+__device__ __noinline__ float option_prior(const uint32_t* eq_in, const uint32_t* eq_out,
+                                           int a, int b, const float* tab) {
+  int src[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) src[i] = i;
+  src[a] = b;
+  if (KIND == 0) src[b] = a;
+  uint32_t eq[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (((eq_in[src[i]] >> src[j]) & 1u) && ((eq_out[i] >> j) & 1u)) m |= 1u << j;
+    eq[i] = m;
+  }
+  return prior_sum<P>(eq, tab);
+}
+
+// prior_S of the chain's current genotype (the swaps' cached prior)
+template <int P>
+__device__ float genotype_prior(const Chain& ch) {
+  const int NB = ch.p->NB;
+  uint32_t eq[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) eq[i] = 1u << i;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int j2 = i + 1; j2 < P; ++j2) {
+      bool same = true;
+      for (int j = 0; j < NB; ++j) same = same && ch.g[i * NB + j] == ch.g[j2 * NB + j];
+      if (same) { eq[i] |= 1u << j2; eq[j2] |= 1u << i; }
+    }
+  }
+  return prior_sum<P>(eq, ch.tab);
+}
 
 // sum_r counts * (logsumexp_h rh[h][r] - log P) over the chain's rows
 template <int P>
@@ -150,10 +257,10 @@ __device__ void rebuild_rh(const Chain& ch) {
 // ---------------------------------------------------------------------------
 
 // One sweep at inverse temperature temp: each MH ratio is
-// (llk' - llk) * temp + log proposal ratio, with the product and sum
-// rounded separately (no FMA), as the plain version computes them.  K1
-// passes temp = 1, where x * 1 is exact, so its chain is the same as
-// without the factor.
+// (llk' - llk [+ DM prior ratio]) * temp + log proposal ratio, with the
+// product and sum rounded separately (no FMA), as the plain version
+// computes them.  At temp = 1, x * 1 is exact, so a flat single-rung
+// chain is the same as without the factor.
 template <int P>
 __device__ float mutation_sweep(const Chain& ch, int step, float llk, float log_p,
                                 float temp) {
@@ -219,8 +326,12 @@ __device__ float mutation_sweep(const Chain& ch, int step, float llk, float log_
             if (eqj[h2]) count_cur += 1.f; else count_alt += 1.f;
           }
         }
-        const float mh =
-            __fadd_rn(__fmul_rn(llk_alt - llk, temp), logf(count_alt)) - logf(count_cur);
+        float dl = llk_alt - llk;
+        if (ch.tab)
+          dl = __fadd_rn(dl, __fsub_rn(__fadd_rn(__fsub_rn(logf(count_cur), logf(count_alt)),
+                                                 logf(__fadd_rn(count_alt - 1.f, ch.alpha))),
+                                       logf(__fadd_rn(count_cur - 1.f, ch.alpha))));
+        const float mh = __fadd_rn(__fmul_rn(dl, temp), logf(count_alt)) - logf(count_cur);
         const float p_acc = nall_j > 1 ? expf(fminf(0.f, mh)) : 0.f;
         if (u < p_acc) {
           moved = true;
@@ -253,8 +364,12 @@ __device__ float mutation_sweep(const Chain& ch, int step, float llk, float log_
 #pragma unroll
           for (int h2 = 0; h2 < P; ++h2)
             if (eq_ex[h2] && colv[h2] == a) count_a += 1.f;
-          const float mh =
-              __fadd_rn(__fmul_rn(llk_a - llk, temp), logf(count_a)) - logf(count_cur);
+          float dl = llk_a - llk;
+          if (ch.tab)
+            dl = __fadd_rn(dl, __fsub_rn(__fadd_rn(__fsub_rn(logf(count_cur), logf(count_a)),
+                                                   logf(__fadd_rn(count_a - 1.f, ch.alpha))),
+                                         logf(__fadd_rn(count_cur - 1.f, ch.alpha))));
+          const float mh = __fadd_rn(__fmul_rn(dl, temp), logf(count_a)) - logf(count_cur);
           acc += expf(fminf(0.f, mh)) / n_opt1;
           if (chosen < 0 && acc > u) { chosen = a; chosen_llk = llk_a; }
         }
@@ -350,10 +465,11 @@ __device__ __noinline__ int count_options(const int* li, const int* lo,
   return n;
 }
 
-// rows0 = rh, interval sums RI(h) = rhi[perm[h]] (FULL: RI = rh).
+// rows0 = rh, interval sums RI(h) = rhi[perm[h]] (FULL: RI = rh); each MH
+// log ratio is (llk' - llk [+ DM prior ratio]) * temp + proposal ratio.
 template <int P, int KIND, bool FULL>
 __device__ float structural_mh(const Chain& ch, int seg_id, int len_in, bool gate,
-                               float u, float llk, float log_p, int perm[P]) {
+                               float u, float llk, float log_p, float temp, int perm[P]) {
   using O = Options<P, KIND>;
   constexpr int K = O::K;
   const Params& p = *ch.p;
@@ -383,6 +499,13 @@ __device__ float structural_mh(const Chain& ch, int seg_id, int len_in, bool gat
   uint64_t valid = 0;
   const int n_options = count_options<P, KIND>(lab_in, lab_out, &valid);
   if (!gate || n_options == 0) return llk;
+  float s_cur = 0.f;
+  if (ch.tab) {
+    uint32_t eq_full[P];
+#pragma unroll
+    for (int h = 0; h < P; ++h) eq_full[h] = eq_in[h] & eq_out[h];
+    s_cur = prior_sum<P>(eq_full, ch.tab);
+  }
 
   // one pass over reads: every valid option's candidate term
   float part[K];
@@ -454,7 +577,9 @@ __device__ float structural_mh(const Chain& ch, int seg_id, int len_in, bool gat
     if (KIND == 0) { li[a] = lab_in[b]; li[b] = lab_in[a]; } else { li[a] = lab_in[b]; }
     const int n_return = count_options<P, KIND>(li, lab_out, nullptr);
     const float lp = logf(n_opt1) - logf(fmaxf((float)n_return, 1.f));
-    const float mh = (llk_k - llk) + lp;
+    float dl = llk_k - llk;
+    if (ch.tab) dl = __fadd_rn(dl, __fsub_rn(option_prior<P, KIND>(eq_in, eq_out, a, b, ch.tab), s_cur));
+    const float mh = __fadd_rn(__fmul_rn(dl, temp), lp);
     acc += expf(fminf(0.f, mh)) / n_opt1;
     if (chosen < 0 && acc > u) { chosen = k; chosen_llk = llk_k; }
   }
@@ -485,38 +610,71 @@ __device__ float structural_mh(const Chain& ch, int seg_id, int len_in, bool gat
   return chosen_llk;
 }
 
+// Point the chain's state at shared-memory slot `slot`.
+template <int P>
+__device__ void bind_slot(Chain& ch, unsigned char* smem, int slot) {
+  const Params& p = *ch.p;
+  ch.rh = reinterpret_cast<float*>(smem + (size_t)slot * p.smem_bytes);
+  ch.rhi = ch.rh + P * p.R;
+  ch.g = reinterpret_cast<int8_t*>(ch.rh + p.smem_floats);
+  ch.seg = ch.g + P * p.NB;
+}
+
 // Chain c's view of its problem and of its warp's shared memory, with
 // the genotype loaded from g_init.
 template <int P>
 __device__ Chain load_chain(const Params& p, unsigned char* smem, int warp, int c) {
-  unsigned char* base = smem + (size_t)warp * p.smem_bytes;
   Chain ch;
   ch.p = &p;
   ch.c = c;
   ch.lane = threadIdx.x & 31;
   ch.s = p.problem[c];
+  ch.rung_off = 0;
+  ch.tab = nullptr;
+  ch.alpha = 0.f;
   const int R = p.R, NB = p.NB, A = p.A;
   ch.lr = p.lr + (size_t)ch.s * NB * A * R;
   ch.cnt = p.counts + (size_t)ch.s * R;
   ch.nall = p.nall + (size_t)ch.s * NB;
-  ch.rh = reinterpret_cast<float*>(base);
-  ch.rhi = ch.rh + P * R;
-  ch.g = reinterpret_cast<int8_t*>(ch.rh + p.smem_floats);
-  ch.seg = ch.g + P * NB;
+  bind_slot<P>(ch, smem, warp);
   for (int i = ch.lane; i < P * NB; i += 32)
     ch.g[i] = (int8_t)p.g_init[(size_t)i * p.C + c];
   __syncwarp();
   return ch;
 }
 
-template <int P>
-__global__ void __launch_bounds__(128) denovo_kernel(Params p) {
+// The T rung-warps of chain `cib` of the block meet here.
+__device__ __forceinline__ void chain_barrier(int cib, int T) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + cib), "r"(32 * T) : "memory");
+}
+
+// K1's chain loop.  LADDER false: one rung at temp 1 and the flat prior,
+// known at compile time; true: p.T rungs and, with p.alpha, the prior.
+template <int P, bool LADDER>
+__device__ __forceinline__ void denovo_chain(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * p.warps + warp;
-  if (c >= p.C) return;  // whole warp leaves; there are no block barriers
+  const int T = LADDER ? p.T : 1;
+  const int rung = warp % T, cib = warp / T;  // rung of chain cib of the block
+  const int c = blockIdx.x * (p.warps / T) + cib;
+  // the chain's T warps leave together; its barriers are its own
+  if (c >= p.C) return;
 
-  const Chain ch = load_chain<P>(p, smem, warp, c);
+  Chain ch = load_chain<P>(p, smem, warp, c);
+  ch.rung_off = rung * p.Dr;
+  const float temp = LADDER ? p.temps[rung] : 1.f;
+  float tab[P + 1];
+  if (LADDER && p.alpha) {
+    ch.alpha = __ldg(p.alpha + ch.s);
+    prior_table<P>(ch.alpha, tab);
+    ch.tab = tab;
+  }
+  // swap state of chain cib: slot, llk and prior of each rung
+  int* sw_slot = reinterpret_cast<int*>(smem + (size_t)p.warps * p.smem_bytes) + 3 * T * cib;
+  float* sw_llk = reinterpret_cast<float*>(sw_slot + T);
+  float* sw_pri = sw_llk + T;
+  if (LADDER && T > 1 && ch.lane == 0) sw_slot[rung] = warp;
+
   const int R = p.R, NB = p.NB, A = p.A;
   const float pb = __ldg(p.pbreak + ch.s);
   const float log_p = logf((float)P);
@@ -533,7 +691,7 @@ __global__ void __launch_bounds__(128) denovo_kernel(Params p) {
       rebuild_rh<P>(ch);
       llk = full_llk<P>(ch, log_p);
     }
-    llk = mutation_sweep<P>(ch, step, llk, log_p, 1.f);
+    llk = mutation_sweep<P>(ch, step, llk, log_p, temp);
 
     if constexpr (P > 1) {
     if (p.stage >= 2) {
@@ -568,9 +726,10 @@ __global__ void __launch_bounds__(128) denovo_kernel(Params p) {
         int perm[P];
 #pragma unroll
         for (int h = 0; h < P; ++h) perm[h] = h;
-        llk = structural_mh<P, 0, false>(ch, i, len_in, gate_r, u_r, llk, log_p, perm);
+        llk = structural_mh<P, 0, false>(ch, i, len_in, gate_r, u_r, llk, log_p, temp, perm);
         if (p.stage >= 3)
-          llk = structural_mh<P, 1, false>(ch, i, len_in, gate_d, u_d, llk, log_p, perm);
+          llk = structural_mh<P, 1, false>(ch, i, len_in, gate_d, u_d, llk, log_p, temp,
+                                           perm);
       }
     }
     if (p.stage >= 3) {
@@ -579,9 +738,36 @@ __global__ void __launch_bounds__(128) denovo_kernel(Params p) {
 #pragma unroll
       for (int h = 0; h < P; ++h) perm[h] = h;
       llk = structural_mh<P, 1, true>(ch, -1, NB, gate_f, ch.uni(step, full0 + 1), llk,
-                                      log_p, perm);
+                                      log_p, temp, perm);
     }
     }  // P > 1
+
+    // neighbour swaps from warm to cold (JAX kernel step 4)
+    if (LADDER && T > 1) {
+      const float pri = ch.tab ? genotype_prior<P>(ch) : 0.f;
+      if (ch.lane == 0) { sw_llk[rung] = llk; sw_pri[rung] = pri; }
+      chain_barrier(cib, T);
+      if (rung == 0 && ch.lane == 0) {
+        for (int t = 1; t < T; ++t) {
+          const float u = ch.uni_at(step, T * p.Dr + t - 1);
+          const float ex = __fmul_rn(__fsub_rn(__fadd_rn(sw_llk[t - 1], sw_pri[t - 1]),
+                                               __fadd_rn(sw_llk[t], sw_pri[t])),
+                                     __fsub_rn(p.temps[t], p.temps[t - 1]));
+          if (u < expf(fminf(0.f, ex))) {
+            const int s0 = sw_slot[t - 1];
+            sw_slot[t - 1] = sw_slot[t]; sw_slot[t] = s0;
+            const float l0 = sw_llk[t - 1];
+            sw_llk[t - 1] = sw_llk[t]; sw_llk[t] = l0;
+            const float q0 = sw_pri[t - 1];
+            sw_pri[t - 1] = sw_pri[t]; sw_pri[t] = q0;
+          }
+        }
+      }
+      chain_barrier(cib, T);
+      llk = sw_llk[rung];
+      bind_slot<P>(ch, smem, sw_slot[rung]);
+      if (rung != T - 1) continue;  // only the cold rung writes the trace
+    }
 
     // trace write: base-packed genotype column per position, and llk
     for (int j = ch.lane; j < NB; j += 32) {
@@ -597,16 +783,57 @@ __global__ void __launch_bounds__(128) denovo_kernel(Params p) {
   }
 }
 
+#ifndef K1_LADDER
+// the flat single-rung chain, as in the kernel before the ladder
+template <int P>
+__global__ void __launch_bounds__(128) denovo_kernel(Params p) {
+  denovo_chain<P, false>(p);
+}
+#else
+// 1-8 rungs and the optional prior; one resident block per SM lets ptxas
+// give P8 its registers (a bare 256 capped it at 128, with spills)
+template <int P>
+__global__ void __launch_bounds__(256, 1) denovo_ladder_kernel(Params p) {
+  denovo_chain<P, true>(p);
+}
+#endif
+
+int smem_floats_for(int P, int R) { return ((2 * P * R) + 3) / 4 * 4; }
+
+// one rung's slot: rh + rhi (f32) and g + seg (int8), in 16-byte units
+int64_t warp_smem_bytes(int P, int R, int NB) {
+  const int64_t bytes = (int64_t)smem_floats_for(P, R) * 4 + P * NB + NB;
+  return (bytes + 15) / 16 * 16;
+}
+
+// one chain: its T rungs' slots and, with more than one rung, the slot
+// index, llk and prior of each rung that the swaps exchange
+int64_t chain_smem_bytes(int P, int R, int NB, int T) {
+  return T * warp_smem_bytes(P, R, NB) + (T > 1 ? 12 * (int64_t)T : 0);
+}
+
 template <int P>
 cudaError_t launch_p(const Params& p, cudaStream_t stream) {
-  const size_t smem = (size_t)p.smem_bytes * p.warps;
+  // rung slots of all the block's chains, then each chain's swap state
+  const int chains = p.warps / p.T;
+  const size_t smem = (size_t)chain_smem_bytes(P, p.R, p.NB, p.T) * chains;
+  const int blocks = (p.C + chains - 1) / chains;
+#ifdef K1_LADDER
+  cudaError_t err = cudaFuncSetAttribute(
+      denovo_ladder_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  denovo_ladder_kernel<P><<<blocks, 32 * p.warps, smem, stream>>>(p);
+#else
+  if (p.T > 1 || p.alpha != nullptr) return cudaErrorInvalidValue;  // the ladder build's
   cudaError_t err = cudaFuncSetAttribute(
       denovo_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (p.C + p.warps - 1) / p.warps;
   denovo_kernel<P><<<blocks, 32 * p.warps, smem, stream>>>(p);
+#endif
   return cudaGetLastError();
 }
+
+#ifndef K1_LADDER
 
 // K0: one mutation sweep at inverse temperature temp from a given llk
 // (replaces mchap_tpu/ops/pallas_denovo.py::pallas_mutation_sweep, body
@@ -634,7 +861,7 @@ __global__ void __launch_bounds__(128) mutation_kernel(Params p, const float* ll
 template <int P>
 cudaError_t launch_mutation(const Params& p, const float* llk_in, float temp, int* g_out,
                             float* rh_out, float* llk_out, cudaStream_t stream) {
-  const size_t smem = (size_t)p.smem_bytes * p.warps;
+  const size_t smem = (size_t)chain_smem_bytes(P, p.R, p.NB, 1) * p.warps;
   cudaError_t err = cudaFuncSetAttribute(
       mutation_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -643,34 +870,39 @@ cudaError_t launch_mutation(const Params& p, const float* llk_in, float temp, in
                                                               rh_out, llk_out);
   return cudaGetLastError();
 }
-
-int smem_floats_for(int P, int R) { return ((2 * P * R) + 3) / 4 * 4; }
+#endif  // K1_LADDER
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one chain-warp needs: rh + rhi (f32) and g + seg (int8).
-int64_t denovo_sampler_smem_bytes(int P, int R, int NB) {
-  const int64_t bytes = (int64_t)smem_floats_for(P, R) * 4 + P * NB + NB;
-  return (bytes + 15) / 16 * 16;
+// Shared memory one chain of T rungs needs (T = 1 for K0): the layout
+// the launches use; blocks hold warps / T chains.
+int64_t denovo_sampler_chain_smem_bytes(int P, int R, int NB, int T) {
+  return chain_smem_bytes(P, R, NB, T);
 }
 
 const char* denovo_sampler_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// K1 entry: alpha [S] or null; temps is a host array of T floats; warps
+// per block is a multiple of T.
 int denovo_sampler_launch(const void* lr, const void* counts, const void* nall,
-                          const void* pbreak, const void* problem, const void* g_init,
-                          const void* noise, void* trace, void* llks, int S, int R,
-                          int NB, int A, int P, int C, int n_steps, float p_recomb,
-                          float p_partial, float p_full, int refresh, int stage,
-                          int out_bytes, uint64_t seed, int warps, void* stream) {
-  Params p;
+                          const void* pbreak, const void* alpha, const void* problem,
+                          const void* g_init, const void* noise, void* trace, void* llks,
+                          int S, int R, int NB, int A, int P, int C, int n_steps, int T,
+                          const float* temps, float p_recomb, float p_partial,
+                          float p_full, int refresh, int stage, int out_bytes,
+                          uint64_t seed, int warps, void* stream) {
+  if (T < 1 || T > kMaxTemps || warps % T != 0 || (T > 1 && warps / T > 15))
+    return cudaErrorInvalidValue;
+  Params p = {};
   p.lr = static_cast<const float*>(lr);
   p.counts = static_cast<const float*>(counts);
   p.nall = static_cast<const int*>(nall);
   p.pbreak = static_cast<const float*>(pbreak);
+  p.alpha = static_cast<const float*>(alpha);
   p.problem = static_cast<const int*>(problem);
   p.g_init = static_cast<const int*>(g_init);
   p.noise = static_cast<const float*>(noise);
@@ -681,11 +913,14 @@ int denovo_sampler_launch(const void* lr, const void* counts, const void* nall,
   p.refresh = refresh; p.stage = stage; p.out_bytes = out_bytes;
   p.seed = seed;
   p.warps = warps;
+  p.T = T;
+  for (int t = 0; t < T; ++t) p.temps[t] = temps[t];
   p.maxseg = NB / 4 + 2 < NB ? NB / 4 + 2 : NB;
   if (p.maxseg < 2) p.maxseg = 2;
-  p.D = P * NB + 2 + (NB - 1) + 2 * p.maxseg + 2;
+  p.Dr = P * NB + 2 + (NB - 1) + 2 * p.maxseg + 2;
+  p.D = T * p.Dr + T - 1;
   p.smem_floats = smem_floats_for(P, R);
-  p.smem_bytes = (int)denovo_sampler_smem_bytes(P, R, NB);
+  p.smem_bytes = (int)warp_smem_bytes(P, R, NB);
   if (C == 0 || n_steps == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (P) {
@@ -701,6 +936,7 @@ int denovo_sampler_launch(const void* lr, const void* counts, const void* nall,
   }
 }
 
+#ifndef K1_LADDER
 // K0 entry: lr [S][NB][A][R], counts [S][R], nall [S][NB], problem [C],
 // g_init [P][NB][C], llk_in [C], noise [P*NB][C] or null; writes g_out
 // [P][NB][C], rh_out [P][R][C] and llk_out [C].
@@ -719,9 +955,11 @@ int mutation_sweep_launch(const void* lr, const void* counts, const void* nall,
   p.S = S; p.R = R; p.NB = NB; p.A = A; p.C = C; p.n_steps = 1;
   p.seed = seed;
   p.warps = warps;
-  p.D = P * NB;  // the sweep's draws: site (h, j) -> h * NB + j
+  p.T = 1;
+  p.temps[0] = 1.f;
+  p.Dr = p.D = P * NB;  // the sweep's draws: site (h, j) -> h * NB + j
   p.smem_floats = smem_floats_for(P, R);
-  p.smem_bytes = (int)denovo_sampler_smem_bytes(P, R, NB);
+  p.smem_bytes = (int)warp_smem_bytes(P, R, NB);
   if (C == 0) return cudaSuccess;
   const float* li = static_cast<const float*>(llk_in);
   int* go = static_cast<int*>(g_out);
@@ -740,5 +978,7 @@ int mutation_sweep_launch(const void* lr, const void* counts, const void* nall,
     default: return cudaErrorInvalidValue;
   }
 }
+
+#endif  // K1_LADDER
 
 }  // extern "C"

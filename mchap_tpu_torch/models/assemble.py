@@ -6,7 +6,9 @@ problem of a block and its chains run through one launch of K1
 (``ops/cuda_denovo.py``): the CUDA kernel on a card, its plain PyTorch
 version on the CPU.  Homozygote-fixed positions stay in the state with
 n_alleles = 1, and the wrapper compacts each problem's het positions to
-the front before the launch.
+the front before the launch.  A tempering ladder (``temperatures``) and
+the Dirichlet-multinomial prior (per-sample ``inbreeding``) run inside
+K1; what K1 cannot run is refused up front (``refuse_unsupported``).
 """
 
 from collections import Counter
@@ -22,6 +24,7 @@ from mchap_tpu_torch.ops import assemble_mcmc as _screen
 from mchap_tpu_torch.ops.cuda_denovo import (
     denovo_sampler,
     draw_layout,
+    k1_unsupported_reason,
     next_pow2,
     unpack_genotype_trace,
 )
@@ -33,8 +36,6 @@ from mchap_tpu_torch.ops.trace_tab import (
 from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.device import resolve_device
-
-_TEMPERING = "K1 tempering and DM prior (ROADMAP queue 4, item 3)"
 
 
 def _point_beta_probabilities(n_base, a=1, b=1):
@@ -83,16 +84,17 @@ def pad_reads_bucket(reads_list, counts_list, min_bucket=8, fill=np.nan):
     return reads, counts
 
 
-def check_supported(use_prior, temperatures):
-    """Raise NotImplementedError for the options K1 does not run yet."""
-    if use_prior:
+def refuse_unsupported(ploidy, n_reads_bucket, n_base, n_temps, inbreeding):
+    """Raise NotImplementedError, before any device work, for a
+    configuration K1 cannot run (``k1_unsupported_reason``): the port
+    has no other de novo sampler yet."""
+    reason = k1_unsupported_reason(
+        ploidy, n_reads_bucket, n_base, n_temps, inbreeding
+    )
+    if reason is not None:
         raise NotImplementedError(
-            f"--use-dirmul-prior is not ported yet: {_TEMPERING}"
-        )
-    if len(temperatures) > 1:
-        raise NotImplementedError(
-            f"--mcmc-temperatures with more than one rung is not ported yet:"
-            f" {_TEMPERING}"
+            f"the de novo sampler K1 cannot run {reason}; the torch de novo"
+            " sampler that would is not ported yet (ROADMAP queue 1, item 2)"
         )
 
 
@@ -151,7 +153,8 @@ class DenovoMCMC:
         return _fit_denovo_core(
             reads[None], np.asarray(read_counts, float)[None],
             np.asarray(self.n_alleles, np.int32)[None], self.ploidy,
-            self.inbreeding is not None, self.steps, self.chains, self.alpha,
+            None if self.inbreeding is None else [self.inbreeding],
+            self.steps, self.chains, self.alpha,
             self.beta, self.fix_homozygous,
             self.recombination_step_probability,
             self.partial_dosage_step_probability,
@@ -164,12 +167,14 @@ class DenovoMCMC:
 def _fit_denovo_batch_kernel(
     log_reads, counts, init, n_alleles_eff, break_dist, ploidy, steps,
     chains, seed, p_recomb, p_partial, p_full, device, burn=0,
-    tabulate=False, pinned_noise=None,
+    tabulate=False, pinned_noise=None, temperatures=(1.0,), alphas=None,
 ):
     """Run all samples x chains through one K1 launch.
 
     log_reads f32[S, R, NB, A], counts [S, R], init i32[S, chains, P,
-    NB], n_alleles_eff [S, NB] (1 = fixed), break_dist [S, NB].  Chain
+    NB], n_alleles_eff [S, NB] (1 = fixed), break_dist [S, NB],
+    ``temperatures`` the ascending ladder, ``alphas`` [S] the
+    Dirichlet-multinomial dispersions (None: flat prior).  Chain
     ``i * chains + c`` is chain c of problem i; the reads stay per
     problem.  With ``tabulate`` the kept trace is tabulated where it
     lies and only distinct states cross to the host.  ``pinned_noise``
@@ -249,15 +254,16 @@ def _fit_denovo_batch_kernel(
     # expected break count, spread over the (compacted) position axis
     pbreak = _dev(mean_breaks / max(n_pos - 1, 1), torch.float32)
     problem = _dev(np.repeat(np.arange(n_samples), chains), torch.int32)
+    alpha_t = None if alphas is None else _dev(alphas, torch.float32)
     noise = None
     if pinned_noise is not None:
-        D = draw_layout(ploidy, n_pos)["D"]
+        D = draw_layout(ploidy, n_pos, len(temperatures))["D"]
         noise = torch.full((steps, D, b), float(pinned_noise), device=device)
     with _timing.stage("device.kernel"):
         packed, llks = denovo_sampler(
             lr_t, counts_t, g0, nall_t, pbreak, problem, n_steps=steps,
             p_recomb=p_recomb, p_partial=p_partial, p_full=p_full,
-            seed=seed, noise=noise,
+            seed=seed, noise=noise, temps=temperatures, alpha=alpha_t,
         )
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -360,7 +366,7 @@ def fit_denovo_batch(
     reads, counts = pad_reads_bucket(reads_list, counts_list)
     n_alleles_mat = np.broadcast_to(n_alleles[None, :], (n_samples, n_pos)).copy()
     return _fit_denovo_core(
-        reads, counts, n_alleles_mat, ploidy, inbreeding_list is not None,
+        reads, counts, n_alleles_mat, ploidy, inbreeding_list,
         steps, chains, alpha, beta, fix_homozygous,
         recombination_step_probability, partial_dosage_step_probability,
         dosage_step_probability, temperatures, random_seed, burn=burn,
@@ -369,7 +375,7 @@ def fit_denovo_batch(
 
 
 def _fit_denovo_core(
-    reads, counts, n_alleles_mat, ploidy, use_prior,
+    reads, counts, n_alleles_mat, ploidy, inbreeding,
     steps, chains, alpha, beta, fix_homozygous,
     recombination_step_probability, partial_dosage_step_probability,
     dosage_step_probability, temperatures, random_seed, burn=0, *,
@@ -379,18 +385,20 @@ def _fit_denovo_core(
 
     ``n_alleles_mat`` is per problem ([S, nb]); positions with
     n_alleles <= 1 (cross-locus padding) are forced homozygous-fixed at
-    allele 0.  Initial genotypes and the sampler seed both come from one
-    ``torch.Generator`` seeded with ``random_seed``.
+    allele 0.  ``inbreeding`` [S] selects the Dirichlet-multinomial
+    prior (None: flat).  Initial genotypes and the sampler seed both
+    come from one ``torch.Generator`` seeded with ``random_seed``.
     """
     temps = np.sort(np.asarray(temperatures, float))
     if temps[-1] != 1.0:
         raise ValueError("the last (coldest) temperature must be 1.0")
-    check_supported(use_prior, temps)
-    n_samples, _, n_pos, _ = reads.shape
+    n_samples, n_reads, n_pos, _ = reads.shape
+    refuse_unsupported(ploidy, n_reads, n_pos, len(temps), inbreeding)
 
     with _timing.stage("device.homfilter"):
         hom = _screen.homozygosity_probabilities_batch(
-            reads, n_alleles_mat, ploidy, read_counts_b=counts
+            reads, n_alleles_mat, ploidy, read_counts_b=counts,
+            inbreeding_b=inbreeding,
         )  # [S, nb, A]
     fixed = hom >= fix_homozygous
     homozygous = np.any(fixed, axis=-1) | (n_alleles_mat <= 1)  # [S, nb]
@@ -398,6 +406,13 @@ def _fit_denovo_core(
     fixed_allele = np.where(homozygous, fixed_allele, 0)
     n_alleles_eff = np.where(homozygous, 1, n_alleles_mat).astype(np.int32)
     n_het = (~homozygous).sum(axis=-1)
+    alphas = None
+    if inbreeding is not None:
+        # DM dispersion (1 - F) / F / u_haps over the haplotypes that the
+        # fixed genotype space allows (reference prior.py:81-112)
+        f = np.asarray(inbreeding, float)
+        log_uh = np.log(n_alleles_eff.astype(float)).sum(axis=1)
+        alphas = (1.0 - f) / f * np.exp(-log_uh)
 
     break_dist = np.zeros((n_samples, n_pos))
     for i in range(n_samples):
@@ -437,7 +452,7 @@ def _fit_denovo_core(
         lr_host, counts, init, n_alleles_eff, break_dist, ploidy, steps,
         chains, kernel_seed, recombination_step_probability,
         partial_dosage_step_probability, dosage_step_probability, device,
-        burn=burn, tabulate=tabulate,
+        burn=burn, tabulate=tabulate, temperatures=tuple(temps), alphas=alphas,
     )
     _fallback.note_path("denovo", "cuda" if device.type == "cuda" else "plain")
     out = []
@@ -536,7 +551,9 @@ def fit_denovo_multi(
     nb_max = (nb_max + 7) // 8 * 8
     a_max = max(a_list)
     r_max = max(64, next_pow2(max(r_list)))
-    use_prior = any(p.get("inbreeding") is not None for p in problems)
+    inbreeding = None
+    if any(p.get("inbreeding") is not None for p in problems):
+        inbreeding = [float(p.get("inbreeding") or 0.0) for p in problems]
 
     reads = np.full((n_prob, r_max, nb_max, a_max), np.nan)
     counts = np.zeros((n_prob, r_max))
@@ -555,7 +572,7 @@ def fit_denovo_multi(
         n_alleles_mat[i, :nb_i] = np.asarray(p["n_alleles"], np.int32)
 
     traces = _fit_denovo_core(
-        reads, counts, n_alleles_mat, ploidy, use_prior,
+        reads, counts, n_alleles_mat, ploidy, inbreeding,
         steps, chains, alpha, beta, fix_homozygous,
         recombination_step_probability, partial_dosage_step_probability,
         dosage_step_probability, temperatures, random_seed, burn=burn,

@@ -4,10 +4,12 @@ Port of ``mchap_tpu/models/calling.py`` (reference
 ``mchap/calling/classes.py``).  Flat-prior Gibbs, the default of
 ``mchap call``, runs every (locus, sample) problem and its chains through
 one launch of K2 (``ops/cuda_calling.py``): the CUDA kernel on a card,
-its plain PyTorch version on the CPU.  A Dirichlet-multinomial prior or
-a Metropolis-Hastings step runs the batched torch sampler
-(``ops/calling_mcmc.py``).  Nothing falls back from one to the other: a
-failed launch raises.  Posterior tabulation happens on the host on the
+its plain PyTorch version on the CPU.  A Dirichlet-multinomial prior, a
+Metropolis-Hastings step, or a shape K2 does not take
+(``k2_unsupported_reason``: ploidy above 8, too many reads) runs the
+batched torch sampler (``ops/calling_mcmc.py``), chosen before any
+launch.  Nothing falls back from one to the other: a failed launch
+raises.  Posterior tabulation happens on the host on the
 small kept trace.
 """
 
@@ -23,7 +25,11 @@ from mchap_tpu_torch.numerics.combinadics import (
     genotype_alleles_as_index,
 )
 from mchap_tpu_torch.ops import calling_mcmc as _mcmc
-from mchap_tpu_torch.ops.cuda_calling import allele_dtype, calling_sampler
+from mchap_tpu_torch.ops.cuda_calling import (
+    allele_dtype,
+    calling_sampler,
+    k2_unsupported_reason,
+)
 from mchap_tpu_torch.ops.likelihood import MIN_LOG, prepare_reads, read_hap_loglik
 from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
@@ -232,7 +238,8 @@ def fit_calling_batch(
     reads, counts = pad_reads_bucket(reads_list, counts_list)
     read_hap = read_hap_loglik(prepare_reads(reads), haplotypes)  # [S, R, H] f64
     seed = random_seed if random_seed is not None else 0
-    if inbreeding_list is None and step_type_i == 0:
+    if (inbreeding_list is None and step_type_i == 0
+            and k2_unsupported_reason(ploidy, read_hap.shape[1]) is None):
         return _fit_batch_kernel(
             read_hap, counts, ploidy, steps, chains, seed,
             np.full(n_samples, n_alleles), burn=burn, device=device,
@@ -287,7 +294,8 @@ def fit_calling_multi(
     read_hap, counts = pad_reads_bucket(rh_list, counts_list, fill=0.0)
     n_valid = np.array([len(p["haplotypes"]) for p in problems], np.int32)
     seed = random_seed if random_seed is not None else 0
-    if not use_prior and step_type_i == 0:
+    if (not use_prior and step_type_i == 0
+            and k2_unsupported_reason(ploidy, read_hap.shape[1]) is None):
         return _fit_batch_kernel(
             read_hap, counts, ploidy, steps, chains, seed, n_valid, burn=burn,
             device=device,

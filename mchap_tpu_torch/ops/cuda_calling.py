@@ -45,6 +45,21 @@ def log_ploidy(ploidy):
     return float(np.float32(math.log(ploidy)))
 
 
+def k2_unsupported_reason(ploidy, n_reads):
+    """Why K2 cannot run ``ploidy`` over ``n_reads`` (padded) reads, or
+    None when it can: ploidy 1..8, and one chain's (P+3)*R*4 bytes of
+    state within a block's shared memory."""
+    if not 1 <= ploidy <= 8:
+        return f"ploidy {ploidy} outside 1..8"
+    need = (ploidy + 3) * n_reads * 4
+    if need > nvcc_build.MAX_SMEM:
+        return (
+            f"{n_reads} reads at ploidy {ploidy} need {need} bytes of shared"
+            f" memory ((P+3)*R*4); a block has {nvcc_build.MAX_SMEM}"
+        )
+    return None
+
+
 def _check_inputs(rh, counts, n_valid, problem, noise, n_steps, ploidy):
     S, R, H = rh.shape
     C = problem.shape[0]
@@ -146,12 +161,10 @@ def _launch(rh, counts, n_valid, problem, *, n_steps, ploidy, seed, noise):
     C = problem.shape[0]
     P = ploidy
     lib = load_library()
+    reason = k2_unsupported_reason(P, R)
+    if reason is not None:
+        raise ValueError(reason)
     per_warp = lib.calling_sampler_smem_bytes(P, R)
-    if per_warp > nvcc_build.MAX_SMEM:
-        raise ValueError(
-            f"chain state needs {per_warp} bytes of shared memory"
-            f" ((P+3)*R*4); at most {nvcc_build.MAX_SMEM} fit in one block"
-        )
     warps = max(1, min(_WARPS_PER_BLOCK, nvcc_build.MAX_SMEM // per_warp))
     device = rh.device
     e = torch.empty((S, R, H), dtype=torch.float32, device=device)

@@ -17,6 +17,21 @@ and rebuilt from the genotype every ``refresh`` steps.  Step 2 runs
 from ``stage >= 2``, step 3 from ``stage >= 3``; with P == 1 only the
 mutation sweep runs.
 
+Two options follow the JAX kernel's ``n_temps`` and ``use_prior`` modes:
+
+- ``temps``, an ascending ladder of T <= 8 inverse temperatures ending
+  at 1.0: every chain runs T coupled rungs from the same start, each MH
+  log ratio of rung t is multiplied by temps[t], and each step ends with
+  neighbour swaps from warm to cold (t = 1..T-1 in turn: swap when
+  u < exp(min(0, ((llk + prior)[t-1] - (llk + prior)[t]) *
+  (temps[t] - temps[t-1])))).  Only the cold rung's trace is returned.
+- ``alpha`` f32[S], the Dirichlet-multinomial dispersion per problem:
+  the mutation ratio gains log(count_cur) - log(count_a) +
+  log(count_a - 1 + alpha) - log(count_cur - 1 + alpha) and the
+  structural ratios prior_S(new) - prior_S(cur), where prior_S sums
+  t(d) = sum_{k<d} log(alpha + k) - log d! over the distinct rows of
+  dosage d; both inside the temperature factor.
+
 ``denovo_sampler`` launches ``csrc/denovo_sampler.cu`` on CUDA tensors
 (and raises if it cannot) and runs ``denovo_sampler_plain``, the same
 function in vectorised torch over chains, on CPU tensors.  Both consume
@@ -45,9 +60,11 @@ import torch
 from mchap_tpu_torch.ops import nvcc_build
 
 NEG_BIG = -1e30
+MAX_TEMPS = 8
 _NAME = "denovo_sampler"
 _MAX_SMEM = nvcc_build.MAX_SMEM
 _WARPS_PER_BLOCK = 4
+_SWAP_BYTES = 12  # per rung of a tempered chain: slot, llk and prior
 
 
 def next_pow2(x):
@@ -62,22 +79,78 @@ def max_segments(n_base):
     return max(2, min(n_base, n_base // 4 + 2))
 
 
-def draw_layout(ploidy, n_base):
+def draw_layout(ploidy, n_base, n_temps=1):
     """Index of each uniform draw within a step, and the step's count D.
 
-    mutation site (h, j) -> h*NB + j; gate_r, gate_d; break before
-    position j (1..NB-1); per segment i a recombination and a dosage
-    draw; gate_f; the full dosage draw.
+    Rung t's draws start at t * rung; within a rung: mutation site
+    (h, j) -> h*NB + j; gate_r, gate_d; break before position j
+    (1..NB-1); per segment i a recombination and a dosage draw; gate_f;
+    the full dosage draw.  The T - 1 swap draws follow the rungs: swap
+    t (1..T-1) at swap + t - 1.  With one rung, D == rung.
     """
     P, NB = ploidy, n_base
     maxseg = max_segments(NB)
     brk = P * NB + 2
     seg = brk + NB - 1
     full = seg + 2 * maxseg
+    rung = full + 2
     return dict(
         gate_r=P * NB, gate_d=P * NB + 1, brk=brk, seg=seg,
-        gate_f=full, full=full + 1, D=full + 2,
+        gate_f=full, full=full + 1, rung=rung, swap=n_temps * rung,
+        D=n_temps * rung + n_temps - 1,
     )
+
+
+def ladder(temps):
+    """The inverse-temperature ladder as a tuple of f32-rounded floats;
+    ``None`` is the single rung (1.0,)."""
+    if temps is None:
+        return (1.0,)
+    t = torch.as_tensor(temps, dtype=torch.float32).cpu().reshape(-1).tolist()
+    if not 1 <= len(t) <= MAX_TEMPS:
+        raise ValueError(f"{len(t)} temperatures; K1 runs 1 to {MAX_TEMPS}")
+    if t[0] < 0 or any(b < a for a, b in zip(t, t[1:])) or t[-1] != 1.0:
+        raise ValueError("temps must ascend from >= 0 to a last rung of 1.0")
+    return tuple(t)
+
+
+def chain_smem_bytes(ploidy, n_reads, n_base, n_temps=1):
+    """Shared memory of one chain, for the refusal check where no
+    library is loaded (the CPU, the CLI's option check): a mirror of the
+    kernel's ``denovo_sampler_chain_smem_bytes``, which sets the launch.
+    Per rung rh and rhi (f32[P][R] each, rounded up to 4 words) then g
+    (int8[P][NB]) and seg (int8[NB]) in 16-byte units; with more than
+    one rung, the slot, llk and prior that the swaps exchange."""
+    floats = (2 * ploidy * n_reads + 3) // 4 * 4
+    rung = (floats * 4 + ploidy * n_base + n_base + 15) // 16 * 16
+    swap = _SWAP_BYTES * n_temps if n_temps > 1 else 0
+    return n_temps * rung + swap
+
+
+def k1_unsupported_reason(ploidy, n_reads_bucket, n_base, n_temps, inbreeding):
+    """Why K1 cannot run this configuration, or None when it can.
+
+    K1 runs ploidy 1..8, at most ``MAX_TEMPS`` rungs, a chain whose
+    rungs' state fits one block's shared memory, and a
+    Dirichlet-multinomial prior only when every sample's inbreeding
+    ``inbreeding`` (None for the flat prior) is above 0.
+    ``n_reads_bucket`` None leaves out the shared-memory check (the
+    read count is not known yet).
+    """
+    if not 1 <= ploidy <= 8:
+        return f"ploidy {ploidy} outside 1..8"
+    if n_temps > MAX_TEMPS:
+        return f"{n_temps} tempering rungs, more than {MAX_TEMPS}"
+    if inbreeding is not None and np.any(np.asarray(inbreeding, float) == 0.0):
+        return "a Dirichlet-multinomial prior where some sample has inbreeding 0"
+    if n_reads_bucket is not None:
+        need = chain_smem_bytes(ploidy, n_reads_bucket, n_base, n_temps)
+        if need > _MAX_SMEM:
+            return (
+                f"{n_temps} rung(s) of ploidy {ploidy} over {n_reads_bucket} reads"
+                f" need {need} bytes of shared memory; a block has {_MAX_SMEM}"
+            )
+    return None
 
 
 def trace_dtype(n_alleles, ploidy):
@@ -100,7 +173,8 @@ def unpack_genotype_trace(packed, ploidy, n_alleles):
     ).astype(np.int8)
 
 
-def _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps):
+def _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps,
+                  temps=(1.0,), alpha=None):
     S, NB, A, R = lr.shape
     P, _, C = g_init.shape
     device = lr.device
@@ -113,8 +187,10 @@ def _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps):
         ("problem", problem, torch.int32, (C,)),
     ]
     if noise is not None:
-        D = draw_layout(P, NB)["D"]
+        D = draw_layout(P, NB, len(temps))["D"]
         expect.append(("noise", noise, torch.float32, (n_steps, D, C)))
+    if alpha is not None:
+        expect.append(("alpha", alpha, torch.float32, (S,)))
     for name, t, dtype, shape in expect:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, lr on {device}")
@@ -137,16 +213,21 @@ def _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps):
 
 def denovo_sampler(lr, counts, g_init, nall, pbreak, problem, *, n_steps,
                    p_recomb=0.5, p_partial=0.5, p_full=1.0, refresh=64,
-                   stage=3, seed=0, noise=None):
+                   stage=3, seed=0, noise=None, temps=None, alpha=None):
     """Run the de novo sampler for C chains; see the module docstring.
 
     On CUDA tensors this launches the kernel (and raises if it cannot);
     on CPU tensors it runs ``denovo_sampler_plain``.  ``noise``
-    f32[n_steps, D, C] pins every uniform draw (tests); otherwise draws
-    come from Philox4x32-10 keyed by (seed, chain) on CUDA and from a
-    ``torch.Generator`` seeded with ``seed`` on the CPU.
+    f32[n_steps, D, C] (``draw_layout(P, NB, T)["D"]``) pins every
+    uniform draw (tests); otherwise draws come from Philox4x32-10 keyed
+    by (seed, chain) on CUDA and from a ``torch.Generator`` seeded with
+    ``seed`` on the CPU.  ``temps`` (default ``[1.0]``) is the tempering
+    ladder and ``alpha`` f32[S] (default None, the flat prior) the
+    Dirichlet-multinomial dispersion per problem.
     """
-    _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps)
+    temps = ladder(temps)
+    _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps,
+                  temps, alpha)
     if stage not in (1, 2, 3):
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
     if refresh < 1:
@@ -154,6 +235,7 @@ def denovo_sampler(lr, counts, g_init, nall, pbreak, problem, *, n_steps,
     kwargs = dict(
         n_steps=n_steps, p_recomb=p_recomb, p_partial=p_partial,
         p_full=p_full, refresh=refresh, stage=stage, seed=seed, noise=noise,
+        temps=temps, alpha=alpha,
     )
     if lr.device.type == "cuda":
         return _launch(lr, counts, g_init, nall, pbreak, problem, **kwargs)
@@ -172,36 +254,48 @@ denovo_sampler.launches = 0
 # CUDA kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
-_lib = None
-_lib_lock = threading.Lock()
+_libs = {}
+_lib_locks = {False: threading.Lock(), True: threading.Lock()}
+_LADDER_NAME = _NAME + "_ladder"
 
 
-def build_log_path():
-    return nvcc_build.log_path(_NAME)
+def build_log_path(ladder=False):
+    return nvcc_build.log_path(_LADDER_NAME if ladder else _NAME)
 
 
-def load_library():
-    """Build (at first use) and load the shared library of K1 and K0.
+def load_library(ladder=False):
+    """Build (at first use) and load a shared library of K1.
 
     ``nvcc`` compiles ``csrc/denovo_sampler.cu`` for sm_90a into
-    ``.build/kernels/`` (``nvcc_build``).  Raises if the build fails.
+    ``.build/kernels/`` (``nvcc_build``): by default into the library of
+    the flat single-rung K1 and of K0, with ``ladder`` (``-DK1_LADDER``)
+    into that of K1 with its tempering ladder and prior.  The two builds
+    can run at once.  Raises if the build fails.
     """
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
+    with _lib_locks[ladder]:
+        if ladder not in _libs:
+            _libs[ladder] = _build(ladder)
+        return _libs[ladder]
+
+
+def _build(ladder):
+    if ladder:
+        lib = nvcc_build.build_library(_LADDER_NAME, _NAME, defines=("K1_LADDER",))
+    else:
         lib = nvcc_build.build_library(_NAME)
-        fn = lib.denovo_sampler_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 9  # lr counts nall pbreak problem g0 noise trace llks
-            + [ctypes.c_int] * 7  # S R NB A P C n_steps
-            + [ctypes.c_float] * 3  # p_recomb p_partial p_full
-            + [ctypes.c_int] * 3  # refresh stage out_bytes
-            + [ctypes.c_uint64]  # seed
-            + [ctypes.c_int]  # warps per block
-            + [ctypes.c_void_p]  # stream
-        )
+    fn = lib.denovo_sampler_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 10  # lr counts nall pbreak alpha problem g0 noise trace llks
+        + [ctypes.c_int] * 8  # S R NB A P C n_steps T
+        + [ctypes.c_void_p]  # temps (host f32[T])
+        + [ctypes.c_float] * 3  # p_recomb p_partial p_full
+        + [ctypes.c_int] * 3  # refresh stage out_bytes
+        + [ctypes.c_uint64]  # seed
+        + [ctypes.c_int]  # warps per block
+        + [ctypes.c_void_p]  # stream
+    )
+    if not ladder:
         fn = lib.mutation_sweep_launch
         fn.restype = ctypes.c_int
         fn.argtypes = (
@@ -212,40 +306,49 @@ def load_library():
             + [ctypes.c_int]  # warps per block
             + [ctypes.c_void_p]  # stream
         )
-        lib.denovo_sampler_smem_bytes.restype = ctypes.c_int64
-        lib.denovo_sampler_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.denovo_sampler_error_string.restype = ctypes.c_char_p
-        lib.denovo_sampler_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-        return lib
+    lib.denovo_sampler_chain_smem_bytes.restype = ctypes.c_int64
+    lib.denovo_sampler_chain_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.denovo_sampler_error_string.restype = ctypes.c_char_p
+    lib.denovo_sampler_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
-def _warps_per_block(lib, P, R, NB):
-    per_warp = lib.denovo_sampler_smem_bytes(P, R, NB)
-    if per_warp > _MAX_SMEM:
+def _warps_per_block(lib, P, R, NB, T=1):
+    """Warps per block: whole chains of T rung-warps each, at most
+    ``_WARPS_PER_BLOCK`` warps (one chain when T exceeds it) and one
+    block's shared memory."""
+    reason = k1_unsupported_reason(P, None, NB, T, None)
+    if reason is not None:
+        raise ValueError(reason)
+    per_chain = lib.denovo_sampler_chain_smem_bytes(P, R, NB, T)
+    if per_chain > _MAX_SMEM:
         raise ValueError(
-            f"chain state needs {per_warp} bytes of shared memory"
-            f" (P*R*8 = {P * R * 8}); at most {_MAX_SMEM} fit in one block"
+            f"{T} rung(s) of ploidy {P} over {R} reads need {per_chain} bytes"
+            f" of shared memory; a block has {_MAX_SMEM}"
         )
-    return max(1, min(_WARPS_PER_BLOCK, _MAX_SMEM // per_warp))
+    chains = max(1, min(_WARPS_PER_BLOCK // T, _MAX_SMEM // per_chain))
+    return chains * T
 
 
 def _launch(lr, counts, g_init, nall, pbreak, problem, *, n_steps, p_recomb,
-            p_partial, p_full, refresh, stage, seed, noise):
+            p_partial, p_full, refresh, stage, seed, noise, temps, alpha):
     S, NB, A, R = lr.shape
     P, _, C = g_init.shape
-    lib = load_library()
-    warps = _warps_per_block(lib, P, R, NB)
+    T = len(temps)
+    lib = load_library(ladder=T > 1 or alpha is not None)
+    warps = _warps_per_block(lib, P, R, NB, T)
     dtype = trace_dtype(A, P)
     trace = torch.empty((n_steps, NB, C), dtype=dtype, device=lr.device)
     llks = torch.empty((n_steps, C), dtype=torch.float32, device=lr.device)
+    temps_host = (ctypes.c_float * T)(*temps)
     stream = torch.cuda.current_stream(lr.device).cuda_stream
     err = lib.denovo_sampler_launch(
         lr.data_ptr(), counts.data_ptr(), nall.data_ptr(), pbreak.data_ptr(),
+        None if alpha is None else alpha.data_ptr(),
         problem.data_ptr(), g_init.data_ptr(),
         None if noise is None else noise.data_ptr(),
         trace.data_ptr(), llks.data_ptr(),
-        S, R, NB, A, P, C, n_steps,
+        S, R, NB, A, P, C, n_steps, T, ctypes.addressof(temps_host),
         p_recomb, p_partial, p_full, refresh, stage, trace.element_size(),
         seed & 0xFFFFFFFFFFFFFFFF, warps, stream,
     )
@@ -314,6 +417,43 @@ def _first_of(eq):
     return eq.to(torch.int8).argmax(dim=-2)
 
 
+def _prior_table(alpha, ploidy):
+    """t(d) = sum_{k<d} log(alpha + k) - log d! for d = 0..P: alpha [C]
+    -> [C, P + 1], added and subtracted in the JAX kernel's order."""
+    la = [torch.log(alpha + float(k)) for k in range(ploidy)]
+    log_m = [torch.log(torch.tensor(float(m))) for m in range(2, ploidy + 1)]
+    cols = [torch.zeros_like(alpha)]
+    for d in range(1, ploidy + 1):
+        s = torch.zeros_like(alpha)
+        for k in range(d):
+            s = s + la[k]
+        for m in range(2, d + 1):
+            s = s - log_m[m - 2]
+        cols.append(s)
+    return torch.stack(cols, dim=-1)
+
+
+def _prior_sum(eq, tab):
+    """Dirichlet-multinomial log prior up to a constant: t(d) of each
+    distinct row in row order.  eq [..., P, P] bool full-row equality,
+    tab [..., P + 1] -> [...]."""
+    P = eq.shape[-1]
+    d = eq.sum(dim=-1)  # [..., P] copies of each row
+    tab = tab.expand(eq.shape[:-2] + tab.shape[-1:])
+    out = torch.zeros(eq.shape[:-2], dtype=torch.float32, device=eq.device)
+    for h in range(P):
+        first = ~eq[..., :h, h].any(dim=-1)
+        t_h = torch.gather(tab, -1, d[..., h : h + 1])[..., 0]
+        out = torch.where(first, out + t_h, out)
+    return out
+
+
+def _genotype_prior(g, tab):
+    """``_prior_sum`` of each chain's genotype g [C, P, NB]."""
+    eq = (g[:, :, None, :] == g[:, None, :, :]).all(dim=-1)
+    return _prior_sum(eq, tab)
+
+
 def _option_terms(li, lo, pairs, kind):
     """Per-option validity from row labels inside (li) and outside (lo) the
     interval: reference recombination_n_options / dosage_n_options.
@@ -339,12 +479,13 @@ def _option_terms(li, lo, pairs, kind):
 
 
 def _structural_mh(g, rh, rh_int, mask, llk, cnt, log_p, gate, u, kind,
-                   full_interval):
+                   full_interval, temp, tab=None):
     """One structural MH step over the interval ``mask``.
 
     g [C, P, NB] long, rh [C, P, R], rh_int [C, P, R] interval sums,
-    mask [C, NB] bool.  Updates g and rh in place; returns (llk, rh_int
-    permuted by the applied move).
+    mask [C, NB] bool, temp [C] inverse temperatures, tab [C, P + 1]
+    the prior's t(d) (None: flat prior).  Updates g and rh in place;
+    returns (llk, rh_int permuted by the applied move).
     """
     C, P, NB = g.shape
     pairs = _option_pairs(P, kind)
@@ -401,7 +542,14 @@ def _structural_mh(g, rh, rh_int, mask, llk, cnt, log_p, gate, u, kind,
 
     n_opt1 = torch.clamp(n_options, min=1.0)[:, None]
     lp = torch.log(n_opt1) - torch.log(torch.clamp(n_return.float(), min=1.0))
-    mh = (llk_opts - llk[:, None]) + lp
+    dl = llk_opts - llk[:, None]
+    if tab is not None:
+        # full-row equality after each option: row i of the new genotype
+        # is row src[k, i] inside the interval and row i outside it
+        s_cur = _prior_sum(e_in & e_out, tab)
+        new_eq = e_in[:, src[:, :, None], src[:, None, :]] & e_out[:, None]
+        dl = dl + (_prior_sum(new_eq, tab[:, None]) - s_cur[:, None])
+    mh = dl * temp[:, None] + lp
     probs = torch.where(
         valid & gate[:, None],
         torch.exp(torch.clamp(mh, max=0.0)) / n_opt1,
@@ -448,12 +596,14 @@ def _sel1(lr_j, val):
     return torch.gather(lr_j, 1, val[:, None, None].expand(C, 1, R))[:, 0]
 
 
-def _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p, temp=1.0):
+def _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p, temp=1.0,
+                          alpha=None):
     """One MH mutation sweep of every chain in systematic h-major site
-    order, at inverse temperature ``temp``.
+    order, at inverse temperature ``temp`` (a number or f32[C]).
 
     g [C, P, NB] long and rh [C, P, R] are updated in place; uni holds
-    site (h, j)'s draw in row h * NB + j.  Returns the new llk [C].
+    site (h, j)'s draw in row h * NB + j.  ``alpha`` f32[C] adds the
+    Dirichlet-multinomial prior ratio.  Returns the new llk [C].
     """
     C, P, NB = g.shape
     A, R = lrc.shape[2:]
@@ -461,6 +611,8 @@ def _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p, temp=1.0):
     zero = torch.zeros((), dtype=torch.float32, device=device)
     ar_p = torch.arange(P, device=device)
     ar_a = torch.arange(A, device=device)
+    temp_a = temp[:, None] if torch.is_tensor(temp) else temp
+    alpha_a = None if alpha is None else alpha[:, None]
     for h in range(P):
         others = [rh[:, i] for i in range(P) if i != h]
         if others:
@@ -486,7 +638,14 @@ def _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p, temp=1.0):
                 llk_alt = _read_sum(cnt * (cand - log_p))
                 count_cur = 1.0 + (eq_ex & eqj).sum(dim=1).float()
                 count_alt = 1.0 + (eq_ex & ~eqj).sum(dim=1).float()
-                mh = (llk_alt - llk) * temp + torch.log(count_alt) - torch.log(count_cur)
+                dl = llk_alt - llk
+                if alpha is not None:
+                    dl = dl + (
+                        torch.log(count_cur) - torch.log(count_alt)
+                        + torch.log(count_alt - 1.0 + alpha)
+                        - torch.log(count_cur - 1.0 + alpha)
+                    )
+                mh = dl * temp + torch.log(count_alt) - torch.log(count_cur)
                 p_acc = torch.where(
                     nall_j > 1, torch.exp(torch.clamp(mh, max=0.0)), zero
                 )
@@ -507,9 +666,14 @@ def _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p, temp=1.0):
                     & (nall_j[:, None] > 1)
                 )
                 n_opt = torch.clamp(valid.sum(dim=1).float(), min=1.0)
-                mh = (llk_a - llk[:, None]) * temp + torch.log(counts_a) - torch.log(
-                    count_cur
-                )[:, None]
+                dl = llk_a - llk[:, None]
+                if alpha is not None:
+                    dl = dl + (
+                        torch.log(count_cur)[:, None] - torch.log(counts_a)
+                        + torch.log(counts_a - 1.0 + alpha_a)
+                        - torch.log(count_cur - 1.0 + alpha)[:, None]
+                    )
+                mh = dl * temp_a + torch.log(counts_a) - torch.log(count_cur)[:, None]
                 probs = torch.where(
                     valid, torch.exp(torch.clamp(mh, max=0.0)) / n_opt[:, None],
                     zero,
@@ -530,53 +694,71 @@ def _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p, temp=1.0):
 
 def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
                          n_steps, p_recomb=0.5, p_partial=0.5, p_full=1.0,
-                         refresh=64, stage=3, seed=0, noise=None):
-    """The kernel's Markov chain in vectorised torch (reference version)."""
+                         refresh=64, stage=3, seed=0, noise=None, temps=None,
+                         alpha=None):
+    """The kernel's Markov chain in vectorised torch (reference version).
+
+    Chain c's rung t is row c * T + t of the state; every rung starts
+    from the chain's ``g_init``.
+    """
+    temps = ladder(temps)
     S, NB, A, R, P, C = _check_inputs(
-        lr, counts, g_init, nall, pbreak, problem, noise, n_steps
+        lr, counts, g_init, nall, pbreak, problem, noise, n_steps, temps, alpha
     )
+    T = len(temps)
     device = lr.device
-    lay = draw_layout(P, NB)
+    lay = draw_layout(P, NB, T)
     maxseg = max_segments(NB)
     base = next_pow2(A)
     gen = None
     if noise is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
-    prob = problem.long()
-    lrc = lr[prob]  # [C, NB, A, R]
-    cnt = counts[prob]  # [C, R]
-    nallc = nall[prob]  # [C, NB]
-    pbc = pbreak[prob]  # [C]
+    prob = problem.long().repeat_interleave(T)
+    CT = C * T
+    lrc = lr[prob]  # [CT, NB, A, R]
+    cnt = counts[prob]  # [CT, R]
+    nallc = nall[prob]  # [CT, NB]
+    pbc = pbreak[prob]  # [CT]
+    ladder_t = torch.tensor(temps, dtype=torch.float32, device=device)
+    temp = ladder_t.repeat(C)  # [CT]
+    alpha_c = None if alpha is None else alpha[prob]
+    tab = None if alpha is None else _prior_table(alpha_c, P)
     log_p = torch.log(torch.tensor(float(P), dtype=torch.float32))
-    g = g_init.permute(2, 0, 1).long().contiguous()  # [C, P, NB]
-    rh = torch.zeros((C, P, R), dtype=torch.float32, device=device)
-    llk = torch.zeros(C, dtype=torch.float32, device=device)
+    g = g_init.permute(2, 0, 1).long().repeat_interleave(T, dim=0).contiguous()
+    rh = torch.zeros((CT, P, R), dtype=torch.float32, device=device)
+    llk = torch.zeros(CT, dtype=torch.float32, device=device)
     trace = torch.empty((n_steps, NB, C), dtype=trace_dtype(A, P), device=device)
     llks = torch.empty((n_steps, C), dtype=torch.float32, device=device)
     weights = torch.tensor([base ** h for h in range(P)], device=device)
+    rows = torch.arange(C, device=device)[:, None] * T
 
     for step in range(n_steps):
         if noise is not None:
-            uni = noise[step]  # [D, C]
+            uni_step = noise[step]  # [D, C]
         else:
-            uni = torch.rand(
+            uni_step = torch.rand(
                 (lay["D"], C), generator=gen, device=device
             ).clamp_(min=1e-12)
+        # rung t of chain c draws from rows t * rung.. of column c
+        uni = uni_step[: lay["swap"]].reshape(T, lay["rung"], C)
+        uni = uni.permute(1, 2, 0).reshape(lay["rung"], CT)
 
         if step % refresh == 0:
             rh = _row_sums(g, lrc)
             llk = _read_sum(cnt * (_lse_rows([rh[:, h] for h in range(P)]) - log_p))
 
         # 1. mutation sweep, systematic h-major site order
-        llk = _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p)
+        llk = _mutation_sweep_plain(
+            g, rh, llk, lrc, cnt, nallc, uni, log_p, temp, alpha_c
+        )
 
         # 2. fused recombination + partial-dosage sweep
         if stage >= 2 and P > 1:
             gate_r = uni[lay["gate_r"]] <= p_recomb
             gate_d = uni[lay["gate_d"]] <= p_partial
-            seg = torch.zeros((C, NB), dtype=torch.long, device=device)
-            acc = torch.zeros(C, dtype=torch.long, device=device)
+            seg = torch.zeros((CT, NB), dtype=torch.long, device=device)
+            acc = torch.zeros(CT, dtype=torch.long, device=device)
             for j in range(1, NB):
                 brk = uni[lay["brk"] + j - 1] < pbc
                 acc = torch.clamp(acc + brk.long(), max=maxseg - 1)
@@ -586,25 +768,48 @@ def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
                 rh_int = _row_sums(g, lrc, mask)
                 llk, rh_int = _structural_mh(
                     g, rh, rh_int, mask, llk, cnt, log_p, gate_r,
-                    uni[lay["seg"] + 2 * i], 0, False,
+                    uni[lay["seg"] + 2 * i], 0, False, temp, tab,
                 )
                 if stage >= 3:
                     llk, _ = _structural_mh(
                         g, rh, rh_int, mask, llk, cnt, log_p, gate_d,
-                        uni[lay["seg"] + 2 * i + 1], 1, False,
+                        uni[lay["seg"] + 2 * i + 1], 1, False, temp, tab,
                     )
 
         # 3. full-length dosage step: the interval sums are the rh rows
         if stage >= 3 and P > 1:
             gate_f = uni[lay["gate_f"]] <= p_full
-            mask = torch.ones((C, NB), dtype=torch.bool, device=device)
+            mask = torch.ones((CT, NB), dtype=torch.bool, device=device)
             llk, _ = _structural_mh(
                 g, rh, rh.clone(), mask, llk, cnt, log_p, gate_f,
-                uni[lay["full"]], 1, True,
+                uni[lay["full"]], 1, True, temp, tab,
             )
 
-        trace[step] = (g * weights[None, :, None]).sum(dim=1).T.to(trace.dtype)
-        llks[step] = llk
+        # 4. neighbour swaps from warm to cold: each exchanges the two
+        # rungs' state (g, rh, llk and prior) by a permutation of rows
+        if T > 1:
+            llk_r = llk.view(C, T).clone()
+            if tab is None:
+                pri_r = torch.zeros_like(llk_r)
+            else:
+                pri_r = _genotype_prior(g, tab).view(C, T)
+            order = torch.arange(T, device=device).repeat(C, 1)
+            for t in range(1, T):
+                u = uni_step[lay["swap"] + t - 1]
+                ex = ((llk_r[:, t - 1] + pri_r[:, t - 1]) - (llk_r[:, t] + pri_r[:, t])) * (
+                    ladder_t[t] - ladder_t[t - 1]
+                )
+                sw = u < torch.exp(torch.clamp(ex, max=0.0))
+                for x in (llk_r, pri_r, order):
+                    a, b = x[:, t - 1].clone(), x[:, t].clone()
+                    x[:, t - 1] = torch.where(sw, b, a)
+                    x[:, t] = torch.where(sw, a, b)
+            idx = (rows + order).reshape(-1)
+            g, rh, llk = g[idx], rh[idx], llk_r.reshape(-1)
+
+        cold = g.view(C, T, P, NB)[:, T - 1]
+        trace[step] = (cold * weights[None, :, None]).sum(dim=1).T.to(trace.dtype)
+        llks[step] = llk.view(C, T)[:, T - 1]
     return trace, llks
 
 

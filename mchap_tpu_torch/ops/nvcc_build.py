@@ -4,7 +4,9 @@
 with a plain C interface (loaded with ``ctypes``).  The file name
 carries a hash of the source, so an edited source is rebuilt; ptxas's
 resource report is kept in ``log_path(name)``.  Each kernel has its own
-source and library, so editing one does not rebuild another.
+source and library, so editing one does not rebuild another.  A source
+may be built more than once with different ``-D`` macros into libraries
+of their own, one ``nvcc`` each, so that its instances compile at once.
 """
 
 import ctypes
@@ -23,13 +25,17 @@ def log_path(name):
     return BUILD_DIR / f"{name}.log"
 
 
-def build_library(name):
-    """Compile ``csrc/<name>.cu`` (unless already built) and load it.
+def build_library(name, source_name=None, defines=()):
+    """Compile ``csrc/<source_name>.cu`` (default ``name``) with a ``-D``
+    for each of ``defines`` into library ``name`` (unless already built)
+    and load it.
 
     Raises if the build fails, with the end of nvcc's error output.
     """
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    source = CSRC / f"{source_name or name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + "".join(f" -D{d}" for d in defines).encode()
+    ).hexdigest()[:12]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     if not lib_path.exists():
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -38,7 +44,8 @@ def build_library(name):
         cmd = [
             nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
             "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(tmp), str(source),
+            "-Xptxas", "-v", *(f"-D{d}" for d in defines), "-o", str(tmp),
+            str(source),
         ]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log_path(name).write_text(proc.stdout + proc.stderr)

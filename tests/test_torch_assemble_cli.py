@@ -5,7 +5,8 @@ tetraploid samples, 3 loci of 8 SNVs, one triallelic SNV, error-free
 amplicon reads): mchap_tpu with its XLA sampler, the port with the plain
 version of its CUDA kernel.  Their random streams differ, so the records
 must agree on decisions (CHROM, POS, REF, ALT, FILTER, every GT, INFO
-AC/AN/NS), not bytes.
+AC/AN/NS), not bytes.  The tempering ladder and the Dirichlet-multinomial
+prior are in test_torch_assemble_options_cli.py.
 """
 
 import contextlib
@@ -64,10 +65,20 @@ def test_assemble_decisions_match_jax(dataset):
 
 
 @pytest.mark.parametrize(
-    "extra", [["--mcmc-temperatures", "0.5", "1.0"], ["--use-dirmul-prior", "0.1"]]
+    "extra",
+    [["--mcmc-temperatures", *[f"{0.1 * i:.1f}" for i in range(2, 10)]],
+     ["--ploidy", "9"], ["mixed-inbreeding"]],
 )
-def test_unported_options_raise(dataset, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_options_raise(dataset, extra, tmp_path):
+    """What K1 cannot run (9 rungs, ploidy 9, a prior with some samples
+    at inbreeding 0) is refused before any read is encoded."""
+    if extra == ["mixed-inbreeding"]:
+        path = tmp_path / "inbreeding.txt"
+        path.write_text("".join(
+            f"{s}\t{0.1 if i else 0.0}\n" for i, s in enumerate(dataset["samples"])
+        ))
+        extra = ["--use-dirmul-prior", str(path)]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
         _run(torch_main, _argv(dataset, "--device", "cpu", *extra))
 
 

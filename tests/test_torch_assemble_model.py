@@ -2,10 +2,13 @@
 
 - The kernel-path wrapper with pinned noise against
   ``_fit_denovo_batch_pallas(interpret=True)``: het compaction, burn,
-  and device tabulation on and off.  Genotypes identical, llks within
-  1e-4 (f32 summation order).
-- Combinadics, the dosage table, the homozygosity screen and exact
-  genotype likelihoods/posteriors: f64, 1e-6 relative.
+  and device tabulation on and off, and a tempering ladder with
+  per-sample Dirichlet-multinomial dispersions.  Genotypes identical,
+  llks within 1e-4 (f32 summation order).
+- Combinadics, the dosage table, the homozygosity screen (flat and with
+  the prior) and exact genotype likelihoods/posteriors: f64, 1e-6
+  relative.
+- What K1 cannot run raises NotImplementedError before any work.
 """
 
 import jax.numpy as jnp
@@ -103,6 +106,25 @@ def test_kernel_wrapper_matches_pallas_wrapper(case, tabulate):
         np.testing.assert_allclose(post_g.probabilities, post_w.probabilities)
 
 
+def test_kernel_wrapper_matches_pallas_wrapper_modes():
+    P, NB, A, S, chains, steps, burn = 4, 8, 2, 3, 2, 6, 1
+    log_reads, counts, init, nall, break_dist = _wrapper_case(P, NB, A, S, chains, seed=3)
+    temps, alphas = (0.5, 1.0), np.array([0.02, 0.4, 3.0])
+    kw = dict(p_recomb=0.5, p_partial=0.5, p_full=1.0, burn=burn,
+              temperatures=temps, alphas=alphas)
+    want = _fit_denovo_batch_pallas(
+        log_reads, counts, init, nall, break_dist, P, steps, chains, seed=7,
+        interpret=True, mesh=None, **kw,
+    )
+    got = _fit_denovo_batch_kernel(
+        log_reads, counts, init, nall, break_dist, P, steps, chains, seed=7,
+        device=torch.device("cpu"), pinned_noise=1e-12, **kw,
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.genotypes, w.genotypes)
+        np.testing.assert_allclose(g.llks, w.llks, rtol=0, atol=1e-4)
+
+
 def test_combinadics_match_jax():
     rng = np.random.default_rng(0)
     for ploidy, n in [(2, 5), (4, 4), (6, 3)]:
@@ -147,6 +169,17 @@ def test_exact_and_screen_match_jax(monkeypatch):
         reads_b, nall, P, read_counts_b=counts_b
     ))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
+    # with the Dirichlet-multinomial prior: per sample F, per position
+    # allele count (F == 0 takes the flat branch of the prior)
+    for F in ([0.1, 0.5], [0.3, 0.0]):
+        got = screen.homozygosity_probabilities_batch(
+            reads_b, nall, P, read_counts_b=counts_b, inbreeding_b=F
+        )
+        want = np.asarray(jscreen.homozygosity_probabilities_batch(
+            reads_b, nall, P, use_prior=True, inbreeding_b=np.asarray(F),
+            read_counts_b=counts_b,
+        ))
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
 
 
 def test_denovo_mcmc_fit_and_unported_options():
@@ -156,8 +189,19 @@ def test_denovo_mcmc_fit_and_unported_options():
                        random_seed=1, device="cpu").fit(reads)
     assert trace.genotypes.shape == (2, 30, 4, 3)
     assert np.isfinite(trace.llks).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DenovoMCMC(ploidy=4, n_alleles=[2, 2, 2], inbreeding=0.1, device="cpu").fit(reads)
+    trace = DenovoMCMC(ploidy=4, n_alleles=[2, 2, 2], inbreeding=0.1, steps=30,
+                       chains=2, temperatures=(0.5, 1.0), random_seed=1,
+                       device="cpu").fit(reads)
+    assert trace.genotypes.shape == (2, 30, 4, 3)
+    assert np.isfinite(trace.llks).all()
+    # what K1 cannot run: a prior over samples some of which have F = 0,
+    # 9 rungs, ploidy 9
     problem = dict(reads=reads, counts=np.ones(len(reads)), n_alleles=[2, 2, 2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit_denovo_multi([problem], 4, steps=5, temperatures=(0.5, 1.0), device="cpu")
+    with pytest.raises(NotImplementedError, match="inbreeding 0.*ROADMAP queue 1, item 2"):
+        fit_denovo_multi([dict(problem, inbreeding=0.1), dict(problem, inbreeding=0.0)],
+                         4, steps=5, device="cpu")
+    with pytest.raises(NotImplementedError, match="9 tempering rungs"):
+        fit_denovo_multi([problem], 4, steps=5, device="cpu",
+                         temperatures=[0.1 * i for i in range(2, 10)] + [1.0])
+    with pytest.raises(NotImplementedError, match="ploidy 9"):
+        DenovoMCMC(ploidy=9, n_alleles=[2, 2, 2], device="cpu").fit(reads)

@@ -182,3 +182,40 @@ def test_calling_mcmc_fit_routes():
     with pytest.raises(ValueError, match="step type"):
         calling.CallingMCMC(ploidy=4, haplotypes=HAPS, step_type="bogus",
                             device="cpu").fit(reads)
+
+
+def test_k2_unsupported_reason():
+    from mchap_tpu_torch.ops.cuda_calling import k2_unsupported_reason
+
+    assert k2_unsupported_reason(4, 64) is None
+    assert k2_unsupported_reason(8, 4096) is None
+    assert "ploidy 9" in k2_unsupported_reason(9, 64)
+    assert "shared memory" in k2_unsupported_reason(4, 16384)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_call_route_outside_k2(multi):
+    """Ploidy 9 is outside K2: the flat Gibbs problem is sent to the torch
+    sampler before any launch (K2's plain version would refuse it)."""
+    from mchap_tpu_torch.utils import fallback
+
+    ploidy = 9
+    rng = np.random.default_rng(5)
+    reads = [
+        simulate_reads(HAPS[rng.integers(0, len(HAPS), ploidy)], n_alleles=2,
+                       n_reads=24, seed=i)
+        for i in range(2)
+    ]
+    counts = [np.ones(len(r)) for r in reads]
+    fallback.PATHS.clear()
+    if multi:
+        problems = [dict(reads=r, counts=c, haplotypes=HAPS) for r, c in zip(reads, counts)]
+        traces = calling.fit_calling_multi(problems, ploidy, steps=20, chains=2,
+                                           random_seed=3, device="cpu")
+    else:
+        traces = calling.fit_calling_batch(ploidy, HAPS, reads, counts, steps=20,
+                                           chains=2, random_seed=3, device="cpu")
+    assert dict(fallback.PATHS) == {("calling", "torch"): 1}
+    for t in traces:
+        assert t.genotypes.shape == (2, 20, ploidy)
+        assert np.isfinite(t.llks).all()

@@ -277,10 +277,12 @@ def k1_case(P, A, seed):
     return lr, counts, g0, nall, pbreak, prob
 
 
-def k1_compare_with_pallas(P, A, stage):
+def k1_compare_with_pallas(P, A, stage, temps=None, alpha=None, n_steps=K1_STEPS):
     """Run the JAX kernel in interpret mode (PRNG inert: every draw is
     1e-12) and the port's plain K1 with noise pinned at 1e-12; assert
-    identical packed traces and llks within 1e-4."""
+    identical packed traces and llks within 1e-4.  ``temps`` (a ladder)
+    and ``alpha`` (f32[4], one dispersion per problem) select the
+    tempered and Dirichlet-multinomial modes."""
     import jax.numpy as jnp
     import torch
 
@@ -295,14 +297,18 @@ def k1_compare_with_pallas(P, A, stage):
         g0,
         np.ascontiguousarray(nall[prob].T),
         pbreak[prob][None],
-        n_steps=K1_STEPS, ploidy=P, stage=stage, refresh=2, packed=True,
+        None if temps is None else np.asarray(temps, np.float32),
+        None if alpha is None else np.asarray(alpha, np.float32)[prob],
+        n_steps=n_steps, ploidy=P, stage=stage, refresh=2, packed=True,
         interpret=True,
     )
-    D = K.draw_layout(P, K1_NB)["D"]
+    T = 1 if temps is None else len(temps)
+    D = K.draw_layout(P, K1_NB, T)["D"]
     trace, llks = K.denovo_sampler(
         *(torch.from_numpy(x) for x in (lr, counts, g0, nall, pbreak, prob)),
-        n_steps=K1_STEPS, stage=stage, refresh=2,
-        noise=torch.full((K1_STEPS, D, K1_C), 1e-12),
+        n_steps=n_steps, stage=stage, refresh=2,
+        noise=torch.full((n_steps, D, K1_C), 1e-12), temps=temps,
+        alpha=None if alpha is None else torch.tensor(alpha, dtype=torch.float32),
     )
     want_trace = np.asarray(want_trace).astype(np.int64)
     np.testing.assert_array_equal(trace.numpy().astype(np.int64), want_trace)
