@@ -7,7 +7,7 @@ in parallel -- ``denovo_sampler.cu`` twice (K1, the de novo sampler,
 flat with K0, one mutation sweep; and K1 with its tempering ladder and
 prior), ``calling_sampler.cu`` (K2, the calling sampler) and
 ``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) -- and runs
-twenty-one phases, each printing one line:
+twenty-two phases, each printing one line:
 
 A. K1 vs its plain PyTorch version on the card, pinned noise;
 B. K1 with its own Philox stream vs exact enumeration;
@@ -16,7 +16,9 @@ C. ``mchap assemble`` end to end through the port's CLI entry point on
    launches and checking genotype calls against the truth;
 D. K1 and plain throughput at 16,384 chains x 200 steps;
 E. K2 vs its plain version, pinned noise;
-F. K2 with its own Philox stream vs exact enumeration;
+F. K2 with its own Philox stream vs exact enumeration, on a panel of 4
+   haplotypes and one of 33, and vs its plain version fed the same
+   draws;
 G. ``mchap call`` end to end on phase C's reads with phase C's output
    VCF as the haplotype panel, counting K2 launches;
 H. K2 and plain throughput at 65,536 chains x 500 steps;
@@ -43,7 +45,9 @@ S. K1 at the latency shape of phase C's launches (440 problems x 2
 T. K1 at ploidy 10 and 12 vs its plain version, at ploidy 10 vs exact
    enumeration, and ``mchap assemble --ploidy 10`` end to end;
 U. K1 on read buckets whose state exceeds shared memory (P4 over 16,384
-   reads, P8 over 4,096, with rungs and the prior) vs its plain version.
+   reads, P8 over 4,096, with rungs and the prior) vs its plain version;
+V. K2 at the latency shape of phase G's launch (440 problems x 2 chains,
+   R16, H6): kernel vs plain on its first steps, then timed.
 
 Each kernel's least time on the card (``bound_ms``) is the largest of
 its f32 operations over 67 TFLOP/s, its f64 operations over 33.5
@@ -135,6 +139,11 @@ def _inputs(rng, S, P, NB, A, R, C, device, **reads):
 
 
 LATENCY = dict(S=440, chains=2, P=4, NB=48, A=3, R=64, steps=200)
+# K2's launch in phase G, as phase G prints it: 440 problems (22 samples x
+# 20 loci) x 2 chains, a problem's chains adjacent, P4, read bucket R16 (a
+# sample's distinct reads at a locus, with counts), panels padded to H6,
+# and (n_valid, run) pairs over the problems: all 6.
+LATENCY_K2 = dict(S=440, chains=2, P=4, R=16, H=6, n_valid=((6, 440),), adjacent=True)
 
 
 def _latency_inputs(rng, device, S=LATENCY["S"], chains=LATENCY["chains"],
@@ -404,15 +413,20 @@ def _denovo_work(P, NB, A, R, S, C, T, trace_bytes, rungs=1, prior=False,
     return _work(per_step_flops * C * T, per_step_tr * C * T, nbytes)
 
 
-def _calling_work(P, R, H, S, C, T):
+def _calling_work(P, R, H, S, C, T, n_valid, problem):
     """K2 per launch, counted from calling_sampler.cu: per slot the other
-    slots' e summed per read, then per candidate and read an add, a
-    logf, an add and a multiply-add, and per candidate log1pf, two logf
-    for the Gumbel draw and two operations."""
-    per_step_flops = P * (R * max(P - 2, 0) + H * (4 * R + 2))
-    per_step_tr = P * H * (R + 3)
+    slots' e summed per read, then per valid candidate (a chain's
+    problem's ``n_valid``; padding columns are never scored) and read an
+    add, a logf, an add and a multiply-add, and per valid candidate two
+    logf for the Gumbel draw and two operations; once per launch an expf
+    per valid (problem, read, allele) and, per chain, log1pf of the P
+    possible copy counts (a table the slots read)."""
+    cols = n_valid.long()[problem.long()].sum().item()  # valid candidates over chains
+    flops = P * (R * max(P - 2, 0) * C + cols * (4 * R + 2))
+    tr = P * cols * (R + 2)
+    once = R * n_valid.long().sum().item() + P * C
     nbytes = 4 * (S * R * H + S * R + S + C + T * C) + T * P * C
-    return _work(per_step_flops * C * T, per_step_tr * C * T, nbytes)
+    return _work(flops * T, tr * T + once, nbytes)
 
 
 def _mutation_work(P, NB, A, R, C):
@@ -488,12 +502,14 @@ def phase_d(device, card):
                 bound_ms=bound_ms / STEPS, bound_by=bound_by)
 
 
-def _calling_inputs(rng, S, P, H, R, C, device, NB=12, n_valid=None):
+def _calling_inputs(rng, S, P, H, R, C, device, NB=12, n_valid=None, adjacent=False):
     """Per-problem read x haplotype log-probabilities [S, R, H] of reads
     simulated from P of a random H-haplotype panel over NB SNVs.  With
     ``n_valid`` (cycled over the problems), problem s keeps its first
     n_valid[s] haplotypes and its other columns are MIN_LOG padding, as
-    ``fit_calling_multi`` pads a block's panels to the largest."""
+    ``fit_calling_multi`` pads a block's panels to the largest.  Chain c
+    belongs to problem c % S, or with ``adjacent`` to problem c // (C / S),
+    as ``models/calling.py`` lays a problem's chains out."""
     import numpy as np
     import torch
 
@@ -510,8 +526,9 @@ def _calling_inputs(rng, S, P, H, R, C, device, NB=12, n_valid=None):
         rh[s] = read_hap_loglik(prepare_reads(reads), panel).numpy()
         rh[s, :, n_valid[s]:] = MIN_LOG
     counts = rng.integers(1, 3, size=(S, R)).astype(np.float32)
-    prob = (np.arange(C) % S).astype(np.int32)
-    return [torch.from_numpy(x).to(device) for x in (rh, counts, n_valid, prob)]
+    prob = np.repeat(np.arange(S), C // S) if adjacent else np.arange(C) % S
+    return [torch.from_numpy(x).to(device)
+            for x in (rh, counts, n_valid, prob.astype(np.int32))]
 
 
 def _calling_recompute(alleles, rh, counts, prob, P):
@@ -555,7 +572,7 @@ def phase_e(device):
         g_p, l_p = KC.calling_sampler_plain(rh, counts, n_valid, prob, **kw)
         torch.cuda.synchronize()
         same = (g_k == g_p).all(dim=0).all(dim=0)
-        frac = same.float().mean().item()
+        frac = same.sum().item() / C  # exact: 1.0 only when every chain is
         err = (l_k - l_p).abs()[:, same].max().item()
         rec = _calling_recompute(g_k, rh, counts, prob, P)
         rec_err = (rec - l_k.double()).abs().max().item()
@@ -569,15 +586,21 @@ def phase_e(device):
             f" genotype {moved:.3f}; padding alleles drawn {padded}",
             flush=True,
         )
-        if frac < 0.99 or err > 1e-3 or rec_err > 1e-2 or padded:
+        if frac < 1.0 or err > 1e-3 or rec_err > 1e-2 or padded:
             _fail(f"phase E ({label})")
         worst = max(worst, err)
     return worst
 
 
 def phase_f(device):
-    """K2 with in-kernel Philox vs exact enumeration (TV < 0.03) on the
-    problem of scripts/gate_pallas_calling.py."""
+    """K2 with in-kernel Philox vs exact enumeration (TV < 0.03): on the
+    problem of scripts/gate_pallas_calling.py (4 haplotypes over 3 SNVs;
+    a slot's Philox calls made during the step before), and on a panel
+    of 33 haplotypes over 12 SNVs with reads from 3 of them (P *
+    ceil(33 / 4) > 32, so each slot makes its calls in the slot).  On
+    each, the first steps of the kernel's chains must also be the plain
+    version's fed with ``cuda_calling.philox_noise``, the kernel's draws
+    made on the host (bounds as phase E)."""
     import numpy as np
     import torch
 
@@ -587,32 +610,82 @@ def phase_f(device):
     from mchap_tpu_torch.ops.likelihood import prepare_reads, read_hap_loglik
     from mchap_tpu_torch.testing import simulate_reads
 
-    P = 4
-    panel = np.array([[0, 0, 0], [0, 1, 1], [1, 1, 0], [1, 1, 1]], np.int8)
-    reads = simulate_reads(panel[[0, 1, 1, 3]], n_alleles=2, n_reads=8,
-                           errors=False, uniform_sample=True, qual=(20, 20), seed=7)
-    want = exact.genotype_posteriors(exact.genotype_likelihoods(reads, P, panel)).numpy()
-    C, STEPS, BURN = 1024, 3000, 500
-    rh = read_hap_loglik(prepare_reads(reads), panel).float()[None].to(device)
-    g, _ = KC.calling_sampler(
-        rh.contiguous(), torch.ones((1, rh.shape[1]), device=device),
-        torch.tensor([len(panel)], dtype=torch.int32, device=device),
-        torch.zeros(C, dtype=torch.int32, device=device),
-        n_steps=STEPS, ploidy=P, seed=13,
+    P, C, STEPS, BURN, CHECK = 4, 1024, 3000, 500, 30
+    rng = np.random.default_rng(31)
+    wide = (rng.choice(1 << 12, 33, replace=False)[:, None] >> np.arange(12)) & 1
+    cases = (
+        ("H4", np.array([[0, 0, 0], [0, 1, 1], [1, 1, 0], [1, 1, 1]]), [0, 1, 1, 3], 13),
+        ("H33", wide, [0, 1, 1, 2], (3 << 32) | 13),
     )
-    flat = g[BURN:].permute(0, 2, 1).reshape(-1, P).long().cpu().numpy()
-    got = np.bincount(genotype_alleles_as_index(flat), minlength=len(want)) / len(flat)
-    tv = 0.5 * np.abs(got - want).sum()
-    print(f"phase F: TV(K2, exact) = {tv:.4f} (bound 0.03)", flush=True)
-    if not tv < 0.03:
-        _fail("phase F")
-    return tv
+    worst = 0.0
+    for label, panel, truth, seed in cases:
+        panel = panel.astype(np.int8)
+        reads = simulate_reads(panel[truth], n_alleles=2, n_reads=8, errors=False,
+                               uniform_sample=True, qual=(20, 20), seed=7)
+        want = exact.genotype_posteriors(exact.genotype_likelihoods(reads, P, panel)).numpy()
+        rh = read_hap_loglik(prepare_reads(reads), panel).float()[None].to(device)
+        args = (rh.contiguous(), torch.ones((1, rh.shape[1]), device=device),
+                torch.tensor([len(panel)], dtype=torch.int32, device=device),
+                torch.zeros(C, dtype=torch.int32, device=device))
+        g, l = KC.calling_sampler(*args, n_steps=STEPS, ploidy=P, seed=seed)
+        noise = KC.philox_noise(seed, CHECK, P, len(panel), C).to(device)
+        g_p, l_p = KC.calling_sampler_plain(*args, n_steps=CHECK, ploidy=P, noise=noise)
+        same = (g[:CHECK] == g_p).all(dim=0).all(dim=0)
+        frac = same.sum().item() / C
+        err = (l[:CHECK] - l_p).abs()[:, same].max().item() if same.any() else float("inf")
+        flat = g[BURN:].permute(0, 2, 1).reshape(-1, P).long().cpu().numpy()
+        got = np.bincount(genotype_alleles_as_index(flat), minlength=len(want)) / len(flat)
+        tv = 0.5 * np.abs(got - want).sum()
+        print(f"phase F ({label}, {len(want)} genotypes): TV(K2, exact) = {tv:.4f} (bound"
+              f" 0.03); first {CHECK} steps vs the plain version on the kernel's Philox"
+              f" draws: identical chains {frac:.4f}, llk |kernel-plain| {err:.3g}"
+              f" (bounds 1.0, 1e-3)", flush=True)
+        if not tv < 0.03 or frac < 1.0 or err > 1e-3:
+            _fail(f"phase F ({label})")
+        worst = max(worst, tv)
+    return worst
+
+
+@contextlib.contextmanager
+def _k2_launch_shapes():
+    """Record the shape of every K2 call made by ``models/calling.py``:
+    S, chains per problem, P, the read bucket R, the padded panel width
+    H, the per-problem ``n_valid`` as (value, run) pairs, and whether a
+    problem's chains are adjacent."""
+    import torch
+
+    from mchap_tpu_torch.models import calling as M
+
+    seen, real = [], M.calling_sampler
+
+    def spy(rh, counts, n_valid, problem, **kw):
+        S, R, H = rh.shape
+        chains = problem.numel() // S
+        runs = []
+        for v in n_valid.tolist():
+            if runs and runs[-1][0] == v:
+                runs[-1][1] += 1
+            else:
+                runs.append([v, 1])
+        adjacent = bool((problem.cpu() == torch.arange(S, dtype=torch.int32)
+                         .repeat_interleave(chains)).all())
+        seen.append(dict(S=S, chains=chains, P=kw["ploidy"], R=R, H=H,
+                         n_valid=tuple(map(tuple, runs)), adjacent=adjacent))
+        return real(rh, counts, n_valid, problem, **kw)
+
+    M.calling_sampler = spy
+    try:
+        yield seen
+    finally:
+        M.calling_sampler = real
 
 
 def phase_g(device, data, extra=()):
     """``mchap call`` at default settings through the CLI entry point:
     phase C's reads, with phase C's output VCF as the haplotype panel
-    (MCHap's documented two-step workflow)."""
+    (MCHap's documented two-step workflow).  Prints the shape of its K2
+    launch and fails unless it is the one launch ``LATENCY_K2`` fixes for
+    phase V."""
     from test_torch_fixtures import parse_vcf_records
 
     n_loci = 20
@@ -621,7 +694,8 @@ def phase_g(device, data, extra=()):
         "--haplotypes", str(data["assembled"]), "--reference", data["reference"],
         *extra,
     ]
-    rc, vcf, wall, launches, timers = _run_cli(argv)
+    with _k2_launch_shapes() as shapes:
+        rc, vcf, wall, launches, timers = _run_cli(argv)
     (WORK / "assemble" / "call.vcf").write_text(vcf)
     records = parse_vcf_records(vcf)
     agree, total = _truth_agreement(records, data["truth"])
@@ -641,29 +715,63 @@ def phase_g(device, data, extra=()):
     )
     for line in timers.summary_lines():
         print("phase G timing:", line, flush=True)
+    for shape in shapes:
+        print(f"phase G K2 launch: {json.dumps(shape)}", flush=True)
+    if shapes != [LATENCY_K2]:  # phase V times this launch's shape
+        print(f"phase G: K2 launches differ from LATENCY_K2 {json.dumps(LATENCY_K2)}",
+              flush=True)
     if (rc != 0 or len(records) != n_loci or k2 < 1 or incomplete
-            or total != 440 or frac < 0.90):
+            or total != 440 or frac < 0.90 or shapes != [LATENCY_K2]):
         _fail("phase G")
     return launches
 
 
-def phase_h(device, card):
-    """K2 and plain throughput at the calling bench shape."""
+def k2_shape(label, device):
+    """K2's inputs and ploidy at a timing shape: "H" (65,536 chains, P4,
+    R64, a 16-haplotype panel, 64 problems, chain c on problem c % 64) or
+    "V" (``LATENCY_K2``, phase G's launch; panels over 12 SNVs, so that
+    haplotypes differ at a few SNVs as phase C's founders do and every
+    candidate's e stays above f32's underflow)."""
     import numpy as np
 
+    if label == "V":
+        L = LATENCY_K2
+        n_valid = np.repeat(*np.array(L["n_valid"]).T)
+        args = _calling_inputs(np.random.default_rng(23), L["S"], L["P"], L["H"], L["R"],
+                               L["S"] * L["chains"], device, n_valid=n_valid,
+                               adjacent=L["adjacent"])
+        return args, L["P"]
+    return _calling_inputs(np.random.default_rng(11), 64, 4, 16, 64, 65536, device), 4
+
+
+def time_k2(args, P, steps=500, repeats=3):
+    """K2's mean ms per step over ``repeats`` launches of ``steps`` steps,
+    after a warm-up call through the wrapper, which checks the inputs.
+    The timed launches go through ``_launch``, past those checks: they
+    wait for the card, so through the wrapper the window would hold each
+    call's host side (phase V prints it)."""
     from mchap_tpu_torch.ops import cuda_calling as KC
 
-    P, H, R, S, C, STEPS = 4, 16, 64, 64, 65536, 500
-    rng = np.random.default_rng(11)
-    args = _calling_inputs(rng, S, P, H, R, C, device)
-    KC.calling_sampler(*args, n_steps=2, ploidy=P)  # warm-up
-    k_ms = _time_cuda(lambda: KC.calling_sampler(*args, n_steps=STEPS, ploidy=P, seed=3), 3)
+    KC.calling_sampler(*args, n_steps=2, ploidy=P)
+    return _time_cuda(lambda: KC._launch(*args, n_steps=steps, ploidy=P, seed=3, noise=None),
+                      repeats) / steps
+
+
+def phase_h(device, card):
+    """K2 and plain throughput at the calling bench shape."""
+    from mchap_tpu_torch.ops import cuda_calling as KC
+
+    STEPS = 500
+    args, P = k2_shape("H", device)
+    S, R, H = args[0].shape
+    C = args[3].shape[0]
+    k_ms = time_k2(args, P, STEPS) * STEPS
     plain_steps = 5
     KC.calling_sampler_plain(*args, n_steps=1, ploidy=P)
     p_ms = _time_cuda(
         lambda: KC.calling_sampler_plain(*args, n_steps=plain_steps, ploidy=P, seed=3), 1
     )
-    work = _calling_work(P, R, H, S, C, STEPS)
+    work = _calling_work(P, R, H, S, C, STEPS, args[2], args[3])
     bound_ms, bound_by = _bound(work, card)
     print(
         f"phase H: K2 {C} chains P{P} R{R} H{H} over {S} problems: kernel"
@@ -677,6 +785,64 @@ def phase_h(device, card):
     )
     return dict(ms=k_ms / STEPS, plain_ms=p_ms / plain_steps,
                 bound_ms=bound_ms / STEPS, bound_by=bound_by)
+
+
+def _k2_vs_plain(args, P, steps, seed):
+    """K2 and its plain version on the same pinned noise: (fraction of
+    identical chains, max llk difference on them)."""
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_calling as KC
+
+    H, C = args[0].shape[2], args[3].shape[0]
+    gen = torch.Generator(device=args[0].device)
+    gen.manual_seed(seed)
+    noise = torch.rand((steps, P, H, C), generator=gen, device=args[0].device)
+    kw = dict(n_steps=steps, ploidy=P, noise=noise.clamp_(min=1e-12))
+    g_k, l_k = KC.calling_sampler(*args, **kw)
+    g_p, l_p = KC.calling_sampler_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same = (g_k == g_p).all(dim=0).all(dim=0)
+    err = (l_k - l_p).abs()[:, same].max().item() if same.any() else float("inf")
+    return same.sum().item() / C, err  # exact: 1.0 only when every chain is
+
+
+def phase_v(device, card, STEPS=2000, CHECK=30):
+    """K2 at the latency shape of phase G's launch (``LATENCY_K2``):
+    kernel vs plain on its first ``CHECK`` steps, pinned noise (bounds as
+    phase E), then both timed (the kernel by ``time_k2``, past the
+    wrapper's checks; a 1-step call through the wrapper is timed too, as
+    the size of the host side that leaves out)."""
+    from mchap_tpu_torch.ops import cuda_calling as KC
+
+    args, P = k2_shape("V", device)
+    S, R, H = args[0].shape
+    C = args[3].shape[0]
+    frac, err = _k2_vs_plain(args, P, CHECK, seed=29)
+    k_ms = time_k2(args, P, STEPS)
+    call_ms = _time_cuda(lambda: KC.calling_sampler(*args, n_steps=1, ploidy=P, seed=3), 3)
+    plain_steps = 5
+    KC.calling_sampler_plain(*args, n_steps=1, ploidy=P)
+    p_ms = _time_cuda(
+        lambda: KC.calling_sampler_plain(*args, n_steps=plain_steps, ploidy=P, seed=3), 1
+    ) / plain_steps
+    work = _calling_work(P, R, H, S, C, STEPS, args[2], args[3])
+    bound_ms, bound_by = _bound(work, card)
+    print(
+        f"phase V: K2 {C} chains ({S} problems x {C // S}) P{P} R{R} H{H} n_valid"
+        f" {LATENCY_K2['n_valid']}: identical chains {frac:.4f} over {CHECK} steps, llk"
+        f" |kernel-plain| on them {err:.3g} (bounds 1.0, 1e-3); kernel {k_ms:.5f} ms per"
+        f" step = {C / (k_ms / 1e3):.4g} chain-steps/s over launches of {STEPS} steps"
+        f" (a 1-step call through the wrapper, its input checks included, {call_ms:.4f}"
+        f" ms); plain {p_ms:.3f} ms per step;"
+        f" bound {bound_ms / STEPS:.6f} ms per step by {bound_by}, kernel at"
+        f" {bound_ms / STEPS / k_ms:.2%} of it",
+        flush=True,
+    )
+    if frac < 1.0 or err > 1e-3:
+        _fail("phase V")
+    return dict(latency_ms=k_ms, latency_plain_ms=p_ms, latency_bound_ms=bound_ms / STEPS,
+                latency_bound_by=bound_by, latency_max_abs_err=err)
 
 
 def _mutation_inputs(rng, P, NB, A, R, C, device):
@@ -1547,6 +1713,7 @@ def main():
         ("S", lambda: phase_s(device, card)),
         ("T", lambda: phase_t(device)),
         ("U", lambda: phase_u(device)),
+        ("V", lambda: phase_v(device, card)),
     ]
     for name, run in runners:
         t = time.perf_counter()
@@ -1574,8 +1741,9 @@ def main():
              bound_by=q["modes_bound_by"]),
         dict(name="calling_sampler", source="mchap_tpu_torch/csrc/calling_sampler.cu",
              replaces="mchap_tpu/ops/pallas_calling.py:55",
-             launches=main_paths[1]["calling_sampler"], max_abs_err=results["E"],
-             **results["H"]),
+             launches=main_paths[1]["calling_sampler"],
+             max_abs_err=max(results["E"], results["V"]["latency_max_abs_err"]),
+             **results["H"], **results["V"]),
         dict(name="mutation_sweep", source="mchap_tpu_torch/csrc/denovo_sampler.cu",
              replaces="mchap_tpu/ops/pallas_denovo.py:76",
              launches=sum(p["mutation_sweep"] for p in main_paths),

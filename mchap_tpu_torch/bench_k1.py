@@ -46,18 +46,19 @@ def _run(code, root):
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise SystemExit(f"bench_k1: {root}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        raise SystemExit(f"bench: {root}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
     return proc.stdout
 
 
-def _ptxas_lines(root):
-    """ptxas's register and stack lines for each K1 and K0 kernel instance
-    of the tree's two K1 libraries."""
+def _ptxas_lines(root, logs=("denovo_sampler.log", "denovo_sampler_ladder.log"),
+                 kernels=r"(denovo_kernel|denovo_ladder_kernel|mutation_kernel)ILi(\d+)E"):
+    """ptxas's register and stack lines for each instance of ``kernels``
+    in the tree's build ``logs`` (by default K1's and K0's)."""
     lines = []
-    for log in ("denovo_sampler.log", "denovo_sampler_ladder.log"):
+    for log in logs:
         kernel = None
         for line in (pathlib.Path(root) / ".build" / "kernels" / log).read_text().splitlines():
-            m = re.search(r"(denovo_kernel|denovo_ladder_kernel|mutation_kernel)ILi(\d+)E", line)
+            m = re.search(kernels, line)
             if m and ("Compiling entry function" in line or "Function properties for" in line):
                 kernel = f"{m.group(1)}<{m.group(2)}>"
             elif kernel and ("registers" in line or "stack frame" in line):
@@ -65,30 +66,38 @@ def _ptxas_lines(root):
     return lines
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("roots", nargs="+")
-    args = ap.parse_args(argv)
-    roots = [str(pathlib.Path(r).resolve()) for r in args.roots]
+def bench(roots, build_code, time_code, shapes, ptxas_lines):
+    """Build every distinct root's kernels at once with ``build_code``,
+    print their ptxas lines, then run ``time_code`` (which prints
+    ``RESULT`` and a JSON object of ms per step by shape) in each root in
+    turn, in a fresh process each."""
+    roots = [str(pathlib.Path(r).resolve()) for r in roots]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
     distinct = list(dict.fromkeys(roots))
     with ThreadPoolExecutor(len(distinct)) as pool:
-        list(pool.map(lambda r: _run(_BUILD, r), distinct))
+        list(pool.map(lambda r: _run(build_code, r), distinct))
     for root in distinct:
-        for line in dict.fromkeys(_ptxas_lines(root)):
+        for line in dict.fromkeys(ptxas_lines(root)):
             print(f"ptxas {root}: {line}", flush=True)
-    code = _TIME.format(path=str(HERE / "chip_smoke.py"), shapes=SHAPES)
     runs = []
     for root in roots:
-        out = _run(code, root)
+        out = _run(time_code, root)
         result = json.loads(out.split("RESULT ", 1)[1].splitlines()[0])
-        print(f"{root}: " + ", ".join(f"{s} {result[s]:.4f}" for s in SHAPES)
+        print(f"{root}: " + ", ".join(f"{s} {result[s]:.4f}" for s in shapes)
               + " ms per step", flush=True)
         runs.append(dict(root=root, ms_per_step=result))
     print(json.dumps({"runs": runs}))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="+")
+    args = ap.parse_args(argv)
+    code = _TIME.format(path=str(HERE / "chip_smoke.py"), shapes=SHAPES)
+    bench(args.roots, _BUILD, code, SHAPES, _ptxas_lines)
 
 
 if __name__ == "__main__":

@@ -19,27 +19,53 @@
 // allele win.  Here m[r] is the maximum over the problem's valid alleles
 // (h < n_valid) only, and padding columns are never scored or chosen.
 //
-// What bounds it on this card: per chain-step it takes P*R*H logarithms
-// (one per slot, read and candidate) plus two per Gumbel draw, a sequence
-// of dependent slot updates per chain.  The logs run in the FP32/SFU pipes;
-// bytes are small (the per-problem e[R][H] is shared by all chains of a
-// problem and stays in L1/L2).
+// What bounds it on this card: per chain-step it takes P*R*n_valid
+// logarithms (one per slot, read and candidate) plus two per Gumbel draw,
+// a sequence of P dependent slot updates per chain.  The logs run in the
+// FP32 pipes (accurate logf, about 20 dependent instructions, which
+// torch's log on the card repeats bit for bit); bytes are small (the
+// per-problem e[R][H] is shared by all chains of a problem and stays in
+// L1/L2).  At 65,536 chains the issue rate sets the time; at the shape of
+// `mchap call`'s launch (440 problems x 2 chains, 16 distinct reads,
+// panels of 6) the card holds about 7 warps per SM, and each slot's chain
+// of dependent latencies does.
 //
-// Layout: one warp per chain.  The warp first writes S_rest[r] into shared
-// memory (lanes stride over reads), then lane h (h += 32 when H > 32) sums
-// its candidate over the reads in order, so every candidate's llk is one
-// sequential f32 sum that the plain version repeats exactly; a warp
-// arg-max by xor butterfly leaves the same (score, allele, llk) in every
-// lane, so the genotype lives in registers and no broadcast is needed.
-// The chain's cached e for each slot, the read counts and m - log P sit in
-// shared memory.  A prologue kernel computes the per-problem anchors m and
-// exponentials e once per launch into scratch the wrapper allocates.
-// Uniform draws come from Philox4x32-10 with key (seed, chain) and counter
-// (step, slot, h / 4, seed >> 32), or from a pinned noise[T][P][H][C].
+// Layout: one warp per chain, with the chain's (candidate, read) terms
+// spread over all 32 lanes.  A chain whose problem has nv valid alleles
+// takes nh = next_pow2(min(nv, 32)) candidates per pass and G = 32 / nh
+// read groups: lane (j, hh) = j * nh + hh adds the terms of candidate
+// hh (+ 32 per further pass when nv > 32) over the reads r = j, j + G,
+// ... in order, and a xor butterfly over the G groups adds the partial
+// sums pairwise (groups 2i and 2i+1 first), which leaves the same llk in
+// every lane of the candidate.  So a panel of 16 fills the warp, and a
+// panel of 6 over 16 reads gives each lane 4 terms, taken as one batch
+// whose loads and logf overlap (a lane with more than 4 terms takes them
+// one after another: where many warps hide the latency, fewer
+// instructions per term win).  Per step the chain's uniform draws come
+// from one Philox4x32-10 call per (slot, four candidates), all made by as
+// many lanes during the step before (one slot at a time, in the slot,
+// when P * ceil(nv / 4) > 32); each lane turns its call's four words
+// into Gumbel terms, and a candidate's lane takes its term by shuffles.
+// A warp arg-max by xor butterfly then leaves the same (score, allele,
+// llk) in every lane, so the genotype lives in registers; log1p of the
+// copies among the other slots comes from a table of P values.  Shared
+// memory holds per read its (count, m - log P) pair, the chain's cached
+// e of each slot and S_rest, which is rebuilt for the next slot where the
+// chosen allele's e is cached (one __syncwarp per slot).  A prologue
+// kernel computes the per-problem anchors m and exponentials e once per
+// launch into scratch the wrapper allocates.  Draws: Philox4x32-10 with
+// key (seed, chain) and counter (step, slot, h / 4, seed >> 32), word
+// h % 4, or a pinned noise[T][P][H][C].
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#ifdef K2_PROFILE  // mchap_tpu_torch/profile_k2.py defines MARK and PROF_ADD
+#define PROF(...) __VA_ARGS__
+#else
+#define PROF(...)
+#endif
 
 namespace {
 
@@ -59,9 +85,8 @@ struct Params {
   uint64_t seed;
 };
 
-__device__ __forceinline__ uint32_t philox_word(uint32_t c0, uint32_t c1, uint32_t c2,
-                                                uint32_t c3, uint32_t k0, uint32_t k1,
-                                                int word) {
+__device__ __forceinline__ void philox4(uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3,
+                                        uint32_t k0, uint32_t k1, uint32_t out[4]) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     uint32_t lo0 = c0 * 0xD2511F53u, hi0 = __umulhi(c0, 0xD2511F53u);
@@ -70,17 +95,36 @@ __device__ __forceinline__ uint32_t philox_word(uint32_t c0, uint32_t c1, uint32
     c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
     k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
   }
-  return word == 0 ? c0 : word == 1 ? c1 : word == 2 ? c2 : c3;
+  out[0] = c0; out[1] = c1; out[2] = c2; out[3] = c3;
 }
 
+// The Gumbel terms logf(-logf(u)) of candidates 4q .. 4q+3 of slot k.
 template <int P>
-__device__ __forceinline__ float uniform(const Params& p, int c, int step, int k, int h) {
-  if (p.noise)
-    return __ldg(p.noise + (((size_t)step * P + k) * p.H + h) * p.C + c);
-  const uint32_t bits =
-      philox_word((uint32_t)step, (uint32_t)k, (uint32_t)(h >> 2),
-                  (uint32_t)(p.seed >> 32), (uint32_t)p.seed, (uint32_t)c, h & 3);
-  return fmaxf((float)(bits >> 9) * (1.0f / 8388608.0f), 1e-12f);
+__device__ __forceinline__ void gumbel4(const Params& p, int c, int step, int k, int q,
+                                        float g[4]) {
+  float u[4];
+  if (p.noise) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int h = 4 * q + w;
+      u[w] = h < p.H ? __ldg(p.noise + (((size_t)step * P + k) * p.H + h) * p.C + c) : 0.5f;
+    }
+  } else {
+    uint32_t bits[4];
+    philox4((uint32_t)step, (uint32_t)k, (uint32_t)q, (uint32_t)(p.seed >> 32),
+            (uint32_t)p.seed, (uint32_t)c, bits);
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      u[w] = fmaxf((float)(bits[w] >> 9) * (1.0f / 8388608.0f), 1e-12f);
+  }
+#pragma unroll
+  for (int w = 0; w < 4; ++w) g[w] = logf(-logf(u[w]));
+}
+
+// Shared memory floats of one chain-warp: per read its (count, m - log P)
+// pair, e per slot and S_rest, rounded up to whole pairs.
+__host__ __device__ constexpr int64_t warp_floats(int P, int R) {
+  return ((int64_t)(P + 3) * R + 1) & ~(int64_t)1;
 }
 
 // per (problem, read): the anchor over valid alleles, m - log P, and e
@@ -97,75 +141,158 @@ __global__ void anchor_kernel(const float* rh, const int* n_valid, float* e, flo
   mlp[i] = m - log_p;
 }
 
+// Candidate h's terms over this lane's reads r = j, j + G, ... (n of
+// them), added in read order from 0.  Up to 4 reads go in one batch whose
+// loads and logf are independent, so they overlap (lanes past n repeat
+// read n - 1 and add nothing); more go one after another, which issues
+// fewer instructions per term where many warps hide the latency.
+__device__ __forceinline__ float read_terms(const float* srest, const float2* cm,
+                                            const float* eh, int e_stride, int j, int G,
+                                            int n) {
+  float part = 0.f;
+  if (n <= 0) return part;  // a read group past R
+  if (n <= 4) {
+    float x[4];
+    float2 q[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = min(u, n - 1);
+      const int r = j + i * G;
+      q[u] = cm[r];
+      x[u] = __fadd_rn(srest[r], __ldg(eh + i * e_stride));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float t = __fmul_rn(q[u].x, __fadd_rn(logf(x[u]), q[u].y));
+      if (u < n) part = __fadd_rn(part, t);
+    }
+    return part;
+  }
+  const float* ep = eh;
+#pragma unroll 4
+  for (int r = j; r < j + n * G; r += G, ep += e_stride) {
+    const float2 q = cm[r];
+    const float t = logf(__fadd_rn(srest[r], __ldg(ep)));
+    part = __fadd_rn(part, __fmul_rn(q.x, __fadd_rn(t, q.y)));
+  }
+  return part;
+}
+
+// S_rest of slot kn: the other slots' cached e, added in slot order, with
+// slot k's new e (e_k) in place of its cached one
+template <int P>
+__device__ __forceinline__ float rest_sum(const float* es, int R, int r, int k, int kn,
+                                          float e_k) {
+  float acc = 0.f;
+  bool first = true;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (i == kn) continue;
+    const float x = i == k ? e_k : es[i * R + r];
+    acc = first ? x : __fadd_rn(acc, x);
+    first = false;
+  }
+  return acc;
+}
+
 template <int P>
 __global__ void __launch_bounds__(128) calling_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * p.warps + warp;
   if (c >= p.C) return;  // whole warp leaves; there are no block barriers
 
   const int R = p.R, H = p.H;
-  float* es = smem + (size_t)warp * (P + 3) * R;  // [P][R] e of each slot's allele
-  float* srest = es + P * R;                      // [R]
-  float* cnt = srest + R;                         // [R]
-  float* mlp = cnt + R;                           // [R]
+  float2* cm = reinterpret_cast<float2*>(smem_raw) + (size_t)warp * warp_floats(P, R) / 2;
+  float* es = reinterpret_cast<float*>(cm + R);  // [P][R] e of each slot's allele
+  float* srest = es + P * R;                     // [R] S_rest of the current slot
   const int s = p.problem[c];
   const float* e = p.e + (size_t)s * R * H;
   const int nv = p.n_valid[s];
+  // lane (j, hh): candidate hh of each pass, reads r = j (mod G)
+  int nh = 1;
+  while (nh < nv && nh < 32) nh <<= 1;
+  const int G = 32 / nh, hh = lane & (nh - 1), j = lane / nh;
+  const int n_mine = j < R ? (R - 1 - j) / G + 1 : 0;  // reads of this lane's group
+  // Philox calls per slot; all slots' calls at once when they fit the warp
+  const int nq = (nv + 3) >> 2;
+  const bool per_step = P * nq <= 32;
+  // log1p of the copies among the other slots, 0 .. P-1
+  float lp[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) lp[i] = log1pf((float)i);
   for (int r = lane; r < R; r += 32) {
-    cnt[r] = __ldg(p.counts + (size_t)s * R + r);
-    mlp[r] = __ldg(p.mlp + (size_t)s * R + r);
+    cm[r] = make_float2(__ldg(p.counts + (size_t)s * R + r), __ldg(p.mlp + (size_t)s * R + r));
     const float e0 = __ldg(e + (size_t)r * H);
 #pragma unroll
     for (int k = 0; k < P; ++k) es[k * R + r] = e0;
+    srest[r] = rest_sum<P>(es, R, r, -1, 0, 0.f);
   }
   __syncwarp();
+  PROF(if (lane == 0) for (int i = 0; i < K2P_N; ++i) prof_s[warp][i] = 0;)
 
   int g[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) g[k] = 0;
+  float gum_next[4] = {0.f, 0.f, 0.f, 0.f};
+  if (per_step && lane < P * nq) gumbel4<P>(p, c, 0, lane / nq, lane % nq, gum_next);
 
 #pragma unroll 1
   for (int step = 0; step < p.n_steps; ++step) {
+    PROF(long long tm = clock64(); const long long t_step = tm;
+         long long a_cand = 0, a_gum = 0, a_phi = 0, a_bfly = 0;)
+    // lane L: call L's four Gumbel terms, made during the step before
+    float gum4[4] = {gum_next[0], gum_next[1], gum_next[2], gum_next[3]};
+    if (per_step && lane < P * nq && step + 1 < p.n_steps)
+      gumbel4<P>(p, c, step + 1, lane / nq, lane % nq, gum_next);
+    PROF(MARKR(a_phi))
     float llk = 0.f;
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      // S_rest: the other slots' cached e, added in slot order
-      for (int r = lane; r < R; r += 32) {
-        float acc = 0.f;
-        bool first = true;
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-          if (i == k) continue;
-          acc = first ? es[i * R + r] : __fadd_rn(acc, es[i * R + r]);
-          first = false;
-        }
-        srest[r] = acc;
-      }
-      __syncwarp();
-
-      // each lane scores its candidates; best = max score, lowest allele
+      // each lane scores its candidate; best = max score, lowest allele
       float best_s = -INFINITY, best_l = 0.f;
       int best_h = kNoAllele;
-      for (int h = lane; h < nv; h += 32) {
-        float l = 0.f;
-#pragma unroll 4
-        for (int r = 0; r < R; ++r) {
-          const float t = logf(__fadd_rn(srest[r], __ldg(e + (size_t)r * H + h)));
-          l = __fadd_rn(l, __fmul_rn(cnt[r], __fadd_rn(t, mlp[r])));
+      for (int c0 = 0; c0 < nv; c0 += 128) {
+        if (!per_step) {
+          if ((c0 >> 2) + lane < nq) gumbel4<P>(p, c, step, k, (c0 >> 2) + lane, gum4);
+          PROF(MARKR(a_phi))
         }
-        int copies = 0;
+        const int c1 = min(nv, c0 + 128);
+        for (int hb = c0; hb < c1; hb += nh) {
+          const int h = hb + hh;
+          const bool valid = h < c1;
+          // candidate h's Gumbel term, from the lane that made its call
+          const int src = (per_step ? k * nq + (h >> 2) : (h - c0) >> 2) & 31;
+          const float w0 = __shfl_sync(kFull, gum4[0], src);
+          const float w1 = __shfl_sync(kFull, gum4[1], src);
+          const float w2 = __shfl_sync(kFull, gum4[2], src);
+          const float w3 = __shfl_sync(kFull, gum4[3], src);
+          const int w = h & 3;
+          const float gum = w == 0 ? w0 : w == 1 ? w1 : w == 2 ? w2 : w3;
+          PROF(MARKR(a_phi))
+          float part =
+              valid ? read_terms(srest, cm, e + (size_t)j * H + h, G * H, j, G, n_mine) : 0.f;
+          PROF(MARKR(a_cand))
+          for (int o = nh; o < 32; o <<= 1)
+            part = __fadd_rn(part, __shfl_xor_sync(kFull, part, o));
+          PROF(MARKR(a_bfly))
+          if (valid) {
+            int copies = 0;
 #pragma unroll
-        for (int i = 0; i < P; ++i) copies += (i != k) && (g[i] == h);
-        const float logit = __fadd_rn(l, log1pf((float)copies));
-        const float u = uniform<P>(p, c, step, k, h);
-        const float score = __fsub_rn(logit, logf(-logf(u)));
-        if (score > best_s || (score == best_s && h < best_h)) {
-          best_s = score; best_h = h; best_l = l;
+            for (int i = 0; i < P; ++i) copies += (i != k) && (g[i] == h);
+            float lc = lp[0];
+#pragma unroll
+            for (int i = 1; i < P; ++i) lc = copies == i ? lp[i] : lc;
+            const float score = __fsub_rn(__fadd_rn(part, lc), gum);
+            if (score > best_s || (score == best_s && h < best_h)) {
+              best_s = score; best_h = h; best_l = part;
+            }
+          }
+          PROF(MARKR(a_gum))
         }
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
+      // lanes of one candidate column agree, so the columns' bits suffice
+      for (int o = 1; o < nh; o <<= 1) {
         const float os = __shfl_xor_sync(kFull, best_s, o);
         const int oh = __shfl_xor_sync(kFull, best_h, o);
         const float ol = __shfl_xor_sync(kFull, best_l, o);
@@ -174,11 +301,22 @@ __global__ void __launch_bounds__(128) calling_kernel(Params p) {
         }
       }
       if (best_h == kNoAllele) best_h = 0;  // every score NaN: keep in bounds
+      PROF(MARKR(a_bfly))
       g[k] = best_h;
       llk = best_l;
-      for (int r = lane; r < R; r += 32) es[k * R + r] = __ldg(e + (size_t)r * H + best_h);
+      // the chosen allele's e into slot k's cache, and the next slot's S_rest
+      __syncwarp();  // every lane has read this slot's S_rest
+      const int kn = k + 1 < P ? k + 1 : 0;
+      for (int r = lane; r < R; r += 32) {
+        const float e_k = __ldg(e + (size_t)r * H + best_h);
+        srest[r] = rest_sum<P>(es, R, r, k, kn, e_k);
+        es[k * R + r] = e_k;
+      }
       __syncwarp();
+      PROF(MARK(5))
     }
+    PROF(PROF_ADD(1, a_cand) PROF_ADD(2, a_gum) PROF_ADD(3, a_phi) PROF_ADD(4, a_bfly)
+         tm = clock64();)
 
     // trace: the sorted genotype and the last slot's llk
     int sorted[P];
@@ -187,10 +325,10 @@ __global__ void __launch_bounds__(128) calling_kernel(Params p) {
 #pragma unroll
     for (int i = 1; i < P; ++i) {
 #pragma unroll
-      for (int j = i; j > 0; --j) {
-        const int a = sorted[j - 1], b = sorted[j];
-        sorted[j - 1] = min(a, b);
-        sorted[j] = max(a, b);
+      for (int jj = i; jj > 0; --jj) {
+        const int a = sorted[jj - 1], b = sorted[jj];
+        sorted[jj - 1] = min(a, b);
+        sorted[jj] = max(a, b);
       }
     }
 #pragma unroll
@@ -202,12 +340,14 @@ __global__ void __launch_bounds__(128) calling_kernel(Params p) {
       }
     }
     if (lane == 0) p.llks[(size_t)step * p.C + c] = llk;
+    PROF(MARK(6) PROF_ADD(7, clock64() - t_step))
   }
+  PROF(if (lane == 0) for (int i = 0; i < K2P_N; ++i) atomicAdd(&g_prof[i], prof_s[warp][i]);)
 }
 
 template <int P>
 cudaError_t launch_p(const Params& p, cudaStream_t stream) {
-  const size_t smem = (size_t)(P + 3) * p.R * sizeof(float) * p.warps;
+  const size_t smem = (size_t)warp_floats(P, p.R) * sizeof(float) * p.warps;
   cudaError_t err = cudaFuncSetAttribute(
       calling_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -220,8 +360,9 @@ cudaError_t launch_p(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// Shared memory one chain-warp needs: e per slot, S_rest, counts, m - log P.
-int64_t calling_sampler_smem_bytes(int P, int R) { return (int64_t)(P + 3) * R * 4; }
+// Shared memory one chain-warp needs: (count, m - log P) per read, e per
+// slot and S_rest.
+int64_t calling_sampler_smem_bytes(int P, int R) { return warp_floats(P, R) * 4; }
 
 const char* calling_sampler_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

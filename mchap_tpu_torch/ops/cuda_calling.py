@@ -45,17 +45,23 @@ def log_ploidy(ploidy):
     return float(np.float32(math.log(ploidy)))
 
 
+def smem_bytes(ploidy, n_reads):
+    """Shared memory one chain needs: (P+3)*R floats, rounded up to whole
+    (count, m - log P) pairs (``calling_sampler_smem_bytes``)."""
+    return ((ploidy + 3) * n_reads + 1) // 2 * 8
+
+
 def k2_unsupported_reason(ploidy, n_reads):
     """Why K2 cannot run ``ploidy`` over ``n_reads`` (padded) reads, or
-    None when it can: ploidy 1..8, and one chain's (P+3)*R*4 bytes of
-    state within a block's shared memory."""
+    None when it can: ploidy 1..8, and one chain's state (``smem_bytes``)
+    within a block's shared memory."""
     if not 1 <= ploidy <= 8:
         return f"ploidy {ploidy} outside 1..8"
-    need = (ploidy + 3) * n_reads * 4
+    need = smem_bytes(ploidy, n_reads)
     if need > nvcc_build.MAX_SMEM:
         return (
             f"{n_reads} reads at ploidy {ploidy} need {need} bytes of shared"
-            f" memory ((P+3)*R*4); a block has {nvcc_build.MAX_SMEM}"
+            f" memory ((P+3)*R floats); a block has {nvcc_build.MAX_SMEM}"
         )
     return None
 
@@ -116,6 +122,38 @@ def calling_sampler(rh, counts, n_valid, problem, *, n_steps, ploidy, seed=0,
 
 #: kernel launches made through ``calling_sampler`` (CUDA tensors only)
 calling_sampler.launches = 0
+
+
+def _philox4x32_10(ctr, key):
+    """Philox4x32-10 on uint64 arrays holding 32-bit words: counters
+    (c0, c1, c2, c3) and keys (k0, k1), broadcast together."""
+    mask = np.uint64(0xFFFFFFFF)
+    c0, c1, c2, c3 = (np.asarray(x, np.uint64) for x in ctr)
+    k0, k1 = (np.asarray(x, np.uint64) for x in key)
+    for _ in range(10):
+        p0 = c0 * np.uint64(0xD2511F53)  # < 2**64: exact
+        p1 = c2 * np.uint64(0xCD9E8D57)
+        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ k0, p1 & mask,
+                          (p0 >> np.uint64(32)) ^ c3 ^ k1, p0 & mask)
+        k0 = (k0 + np.uint64(0x9E3779B9)) & mask
+        k1 = (k1 + np.uint64(0xBB67AE85)) & mask
+    return c0, c1, c2, c3
+
+
+def philox_noise(seed, n_steps, ploidy, H, C):
+    """The uniforms the kernel draws from its own Philox stream when no
+    ``noise`` is given, made on the host: f32[n_steps, P, H, C].  Draw
+    (step, slot, h) of chain c is word h % 4 of the call with key (low 32
+    bits of seed, c) and counter (step, slot, h // 4, high 32 bits of
+    seed), its top 23 bits over 2**23, at least 1e-12.  Passed as
+    ``noise``, it holds the kernel's Philox path to the plain version."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    nq = (H + 3) // 4
+    t, k, q, c = np.ix_(np.arange(n_steps), np.arange(ploidy), np.arange(nq), np.arange(C))
+    words = _philox4x32_10((t, k, q, seed >> 32), (seed & 0xFFFFFFFF, c))
+    bits = np.stack(words, axis=3).reshape(n_steps, ploidy, 4 * nq, C)[:, :, :H]
+    u = (bits >> np.uint64(9)).astype(np.float32) * np.float32(1.0 / 8388608.0)
+    return torch.from_numpy(np.maximum(u, np.float32(1e-12)))
 
 
 # ---------------------------------------------------------------------------
@@ -191,9 +229,37 @@ def _launch(rh, counts, n_valid, problem, *, n_steps, ploidy, seed, noise):
 # ---------------------------------------------------------------------------
 
 
+def read_groups(n_valid):
+    """The kernel's read groups G for a problem with ``n_valid`` alleles:
+    32 / next_pow2(min(n_valid, 32))."""
+    nh = 1
+    while nh < min(n_valid, 32):
+        nh *= 2
+    return 32 // nh
+
+
+def _grouped_sum(terms, G):
+    """Sum terms [n, R, H] over reads as the kernel's lanes do: group j
+    adds reads j, j + G, ... in order from 0, then the G partial sums
+    are added pairwise (groups 2i and 2i+1 first)."""
+    n, R, H = terms.shape
+    pad = -R % G
+    if pad:  # x + 0 == x: padding reads add nothing
+        terms = torch.cat([terms, terms.new_zeros((n, pad, H))], dim=1)
+    t = terms.view(n, -1, G, H)
+    acc = torch.zeros((n, G, H), dtype=terms.dtype, device=terms.device)
+    for i in range(t.shape[1]):
+        acc = acc + t[:, i]
+    while acc.shape[1] > 1:
+        acc = acc[:, 0::2] + acc[:, 1::2]
+    return acc[:, 0]
+
+
 def calling_sampler_plain(rh, counts, n_valid, problem, *, n_steps, ploidy,
                           seed=0, noise=None):
-    """The kernel's Markov chain in vectorised torch (reference version)."""
+    """The kernel's Markov chain in vectorised torch (reference version),
+    each candidate's llk summed in the kernel's order (``_grouped_sum``
+    with its chain's ``read_groups``)."""
     S, R, H, C = _check_inputs(rh, counts, n_valid, problem, noise, n_steps, ploidy)
     P = ploidy
     device = rh.device
@@ -204,6 +270,9 @@ def calling_sampler_plain(rh, counts, n_valid, problem, *, n_steps, ploidy,
     mlp = m - log_ploidy(P)
     prob = problem.long()
     ec, cntc, mlpc, validc = e[prob], counts[prob], mlp[prob], valid[prob]
+    groups = torch.tensor([read_groups(int(v)) for v in n_valid.tolist()])[prob.cpu()]
+    chains_of = {int(G): torch.nonzero(groups == G)[:, 0].to(device)
+                 for G in groups.unique()}
     gen = None
     if noise is None:
         gen = torch.Generator(device=device)
@@ -224,9 +293,9 @@ def calling_sampler_plain(rh, counts, n_valid, problem, *, n_steps, ploidy,
             terms = cntc[:, :, None] * (
                 torch.log(srest[:, :, None] + ec) + mlpc[:, :, None]
             )  # [C, R, H]
-            l = terms[:, 0]
-            for r in range(1, R):  # reads in order, as each kernel lane adds
-                l = l + terms[:, r]
+            l = torch.empty((C, H), dtype=torch.float32, device=device)
+            for G, idx in chains_of.items():
+                l[idx] = _grouped_sum(terms[idx], G)
             copies = torch.zeros((C, H), dtype=torch.float32, device=device)
             for i in others:
                 copies = copies + (g[:, i, None] == alleles_h).float()

@@ -152,9 +152,10 @@ def instrument_warp_per_chain(src):
     return _insert(s, "}  // namespace\n", _READ)
 
 
-def build(src, defines=()):
-    OUT.mkdir(parents=True, exist_ok=True)
-    cu, so = OUT / "denovo_sampler_prof.cu", OUT / "libdenovo_sampler_prof.so"
+def build(src, defines=(), stem="denovo_sampler", out=OUT):
+    """nvcc ``src`` for sm_90a into ``out/lib<stem>_prof.so``."""
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{stem}_prof.cu", out / f"lib{stem}_prof.so"
     cu.write_text(src)
     proc = subprocess.run(
         ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -162,7 +163,7 @@ def build(src, defines=()):
          *(f"-D{d}" for d in defines), "-o", str(so), str(cu)],
         capture_output=True, text=True)
     if proc.returncode:
-        raise SystemExit(f"profile_k1: nvcc failed:\n{proc.stderr[-4000:]}")
+        raise SystemExit(f"profile: nvcc failed on {stem}:\n{proc.stderr[-4000:]}")
     return so
 
 

@@ -29,6 +29,8 @@
 #define __align__(n)
 #define __restrict__
 
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 typedef int cudaError_t;
 typedef void* cudaStream_t;

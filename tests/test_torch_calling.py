@@ -27,7 +27,7 @@ from mchap_tpu.ops import priors as jax_priors
 from mchap_tpu.ops.pallas_calling import pallas_calling_sampler
 from mchap_tpu.testing import simulate_reads
 from mchap_tpu_torch.numerics import combinadics, dosage
-from mchap_tpu_torch.ops import calling_mcmc, priors
+from mchap_tpu_torch.ops import calling_mcmc, cuda_calling, priors
 from mchap_tpu_torch.ops.cuda_calling import calling_sampler, calling_sampler_plain
 from mchap_tpu_torch.ops.likelihood import prepare_reads, read_hap_loglik
 
@@ -112,6 +112,19 @@ def test_k2_plain_matches_pallas_random(P, H, R):
     _compare_with_pallas(rh, counts, n_valid, P, 6 + P // 2)
 
 
+@pytest.mark.parametrize("P, H, R, n_valid", [
+    (2, 40, 16, [40, 37, 33, 40]),  # over 32 lanes: two candidate passes, one read group
+    (4, 5, 30, [5, 3, 2, 1]),  # 4, 8, 16 and 32 read groups; 30 reads in none of them
+])
+def test_k2_plain_matches_pallas_read_groups(P, H, R, n_valid):
+    """The kernel's summation order (strided read groups, then pairwise)
+    at panels over 32 lanes and at read counts no group count divides."""
+    rng = np.random.default_rng(H + R)
+    rh = rng.uniform(-20.0, 0.0, size=(len(n_valid), R, H))
+    counts = rng.integers(1, 4, size=rh.shape[:2]).astype(float)
+    _compare_with_pallas(rh, counts, np.array(n_valid), P, 5)
+
+
 def test_k2_plain_matches_exact_posterior():
     """The problem of scripts/gate_pallas_calling.py, sampled with the
     plain version's own stream: TV < 0.05 against exact enumeration."""
@@ -164,6 +177,26 @@ def test_k2_anchor_takes_valid_alleles_only():
             np.log(np.exp(rh32[:, geno]).sum(axis=1)) - np.log(P)
         ))
         assert llk[t, 0].item() == pytest.approx(want, rel=1e-3)
+
+
+@pytest.mark.parametrize("ctr, key, want", [  # Random123's known answers
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_k2_host_philox_known_answers(ctr, key, want):
+    """The host's Philox4x32-10, and ``philox_noise``'s draw (step, slot,
+    h, chain) as word h % 4 of the call at counter (step, slot, h // 4,
+    seed >> 32) and key (seed & 0xFFFFFFFF, chain)."""
+    assert tuple(int(w) for w in cuda_calling._philox4x32_10(ctr, key)) == want
+    seed = (ctr[3] << 32) | key[0]
+    t, k, q, c = ctr[0] % 3, ctr[1] % 2, ctr[2] % 2, key[1] % 5
+    words = cuda_calling._philox4x32_10((t, k, q, ctr[3]), (key[0], c))
+    noise = cuda_calling.philox_noise(seed, 3, 2, 7, 5)
+    for w in range(4 if q == 0 else 3):  # H = 7: call 1 has three draws
+        u = max(np.float32(int(words[w]) >> 9) * np.float32(2.0 ** -23), np.float32(1e-12))
+        assert noise[t, k, 4 * q + w, c].item() == u
 
 
 def _k2_args(**change):
