@@ -7,7 +7,7 @@ in parallel -- ``denovo_sampler.cu`` twice (K1, the de novo sampler,
 flat with K0, one mutation sweep; and K1 with its tempering ladder and
 prior), ``calling_sampler.cu`` (K2, the calling sampler) and
 ``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) -- and runs
-twenty-two phases, each printing one line:
+twenty-five phases, each printing its lines:
 
 A. K1 vs its plain PyTorch version on the card, pinned noise;
 B. K1 with its own Philox stream vs exact enumeration;
@@ -47,7 +47,18 @@ T. K1 at ploidy 10 and 12 vs its plain version, at ploidy 10 vs exact
 U. K1 on read buckets whose state exceeds shared memory (P4 over 16,384
    reads, P8 over 4,096, with rungs and the prior) vs its plain version;
 V. K2 at the latency shape of phase G's launch (440 problems x 2 chains,
-   R16, H6): kernel vs plain on its first steps, then timed.
+   R16, H6): kernel vs plain on its first steps, then timed;
+W. the torch de novo sampler (``ops/assemble_mcmc.py``, no kernel of its
+   own): ``fit_denovo_multi``'s route at ploidy 4 (K1), 14, with 9 rungs
+   and with a prior where one sample has F = 0 (the torch sampler); the
+   sampler vs exact enumeration on the card; ``mchap assemble
+   --use-dirmul-prior FILE`` on phase C's data with one sample at F = 0,
+   so every block takes it, and its ms per step eager and as a CUDA graph;
+X. ``mchap call-exact`` end to end on phase C's reads with phase C's
+   output VCF as the panel, the block path and (``--report GP``) the
+   per-locus path;
+Y. ``mchap find-snvs`` on phase C's files and ``mchap atomize`` on
+   ``call-exact``'s output over C's founder haplotypes.
 
 Each kernel's least time on the card (``bound_ms``) is the largest of
 its f32 operations over 67 TFLOP/s, its f64 operations over 33.5
@@ -1624,6 +1635,396 @@ def phase_u(device):
     return worst
 
 
+W_LADDER = [round(0.1 * i, 1) for i in range(2, 10)] + [1.0]  # 9 rungs: above K1's 8
+# phase W's end-to-end run cuts the default 2000 steps (burn 1000), so
+# that the torch sampler's run at C's width stays within about 240 s
+W_STEPS = ["--mcmc-steps", "600", "--mcmc-burn", "300"]
+
+
+@contextlib.contextmanager
+def _denovo_sampler_calls():
+    """Record the arguments of every call of the torch de novo sampler
+    made by ``models/assemble.py``."""
+    from mchap_tpu_torch.ops import assemble_mcmc as M
+
+    seen, real = [], M.denovo_sampler
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    M.denovo_sampler = spy
+    try:
+        yield seen
+    finally:
+        M.denovo_sampler = real
+
+
+def _time_torch_sampler(args, kw, cuda_graph, steps=(10, 40)):
+    """ms per step of the torch de novo sampler on ``args``, eager or
+    through its CUDA graph: the difference of two runs of ``steps``
+    steps, so that set-up and capture drop out; and the longer run's
+    cold trace."""
+    import torch
+
+    from mchap_tpu_torch.ops import assemble_mcmc as M
+
+    times, out = [], None
+    for n in steps:
+        gen = torch.Generator(device=args[1].device)
+        gen.manual_seed(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = M.denovo_sampler(gen, *args[1:], **dict(kw, n_steps=n, burn=0,
+                                                       cuda_graph=cuda_graph))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * (times[1] - times[0]) / (steps[1] - steps[0]), out
+
+
+def _w_problems(rng, ploidy, n_problems=3, n_pos=5):
+    import numpy as np
+
+    from mchap_tpu_torch.testing import simulate_reads
+
+    panel = rng.integers(0, 2, size=(6, n_pos)).astype(np.int8)
+    out = []
+    for i in range(n_problems):
+        reads = simulate_reads(panel[rng.integers(0, 6, ploidy)], n_alleles=2,
+                               n_reads=40, seed=i)
+        out.append(dict(reads=reads, counts=np.ones(len(reads)), n_alleles=[2] * n_pos))
+    return out
+
+
+def phase_w_routes(device):
+    """``fit_denovo_multi`` chooses its route before any launch: ploidy 4
+    to K1; ploidy 14, 9 rungs and a prior with one sample at F = 0 to the
+    torch de novo sampler, K1's count unmoved."""
+    import numpy as np
+
+    from mchap_tpu_torch.models.assemble import fit_denovo_multi
+    from mchap_tpu_torch.utils import fallback
+
+    rng = np.random.default_rng(14)
+    cases = (
+        ("ploidy 4", 4, {}, None),
+        ("ploidy 14", 14, {}, None),
+        ("9 rungs", 4, dict(temperatures=W_LADDER), None),
+        ("prior F = 0 and 0.1", 4, {}, [0.0, 0.1, 0.1]),
+    )
+    ok = True
+    for label, ploidy, kw, inbreeding in cases:
+        problems = _w_problems(rng, ploidy)
+        if inbreeding is not None:
+            problems = [dict(p, inbreeding=f) for p, f in zip(problems, inbreeding)]
+        fallback.PATHS.clear()
+        _reset_launches()
+        traces = fit_denovo_multi(problems, ploidy, steps=60, chains=2, burn=20,
+                                  random_seed=1, device=device, **kw)
+        k1 = _launches()["denovo_sampler"]
+        paths = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
+        # K1's route tabulates its trace: (chains, kept steps, P, NB) either way
+        shapes = sorted({
+            t.genotypes.shape if hasattr(t, "genotypes")
+            else (t.states.shape[0], t.kept) + t.states.shape[2:] for t in traces
+        })
+        finite = all(np.isfinite(t.llks).all() for t in traces)
+        print(f"phase W (route, {label}): K1 launches {k1}, de novo routes {paths},"
+              f" trace shapes {shapes}, llks finite {finite}", flush=True)
+        want = (1, ["cuda"]) if label == "ploidy 4" else (0, ["torch"])
+        ok &= (k1, paths) == want and shapes == [(2, 40, ploidy, 5)] and finite
+    if not ok:
+        _fail("phase W (routes)")
+
+
+def phase_w_block(device, ploidy=16, n_reads=1024, n_problems=440, steps=3):
+    """The torch de novo sampler on a block of phase C's size (440
+    problems x 2 chains) at ploidy 16 and 1024 reads per problem, where
+    one interval step over the whole block would need about 110 GB of
+    [B, K, R, P] temporaries: ``rows_per_chunk`` splits it into pieces
+    that fit a quarter of the free memory.  Gate: the torch route, the
+    block split, the peak below the card's memory, finite llks."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.models.assemble import fit_denovo_multi
+    from mchap_tpu_torch.ops import assemble_mcmc as M
+    from mchap_tpu_torch.testing import simulate_reads
+    from mchap_tpu_torch.utils import fallback
+
+    rng = np.random.default_rng(16)
+    n_pos = 5
+    distinct = []
+    for i in range(22):
+        haps = rng.integers(0, 2, size=(ploidy, n_pos)).astype(np.int8)
+        haps[:2] = [[0], [1]]  # every position heterozygous
+        reads = simulate_reads(haps, n_alleles=2, n_reads=n_reads, seed=i)
+        distinct.append(dict(reads=reads, counts=np.ones(len(reads)), n_alleles=[2] * n_pos))
+    problems = [distinct[i % 22] for i in range(n_problems)]
+    chunks, real = [], M.rows_per_chunk
+
+    def spy(*args):
+        chunks.append(real(*args))
+        return chunks[-1]
+
+    fallback.PATHS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    M.rows_per_chunk = spy
+    t = time.perf_counter()
+    try:
+        traces = fit_denovo_multi(problems, ploidy, steps=steps, chains=2, burn=1,
+                                  random_seed=1, device=device)
+    finally:
+        M.rows_per_chunk = real
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    rows = 2 * n_problems
+    routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
+    shapes = sorted({t.genotypes.shape for t in traces})
+    finite = all(np.isfinite(t.llks).all() for t in traces)
+    print(f"phase W (block, P{ploidy} R{n_reads}, {n_problems} problems x 2 chains):"
+          f" routes {routes}, rows per piece {chunks} of {rows}, peak"
+          f" {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB, trace shapes {shapes},"
+          f" llks finite {finite}, {wall:.2f} s for {steps} steps", flush=True)
+    if (routes != ["torch"] or len(chunks) != 1 or not chunks[0] < rows
+            or peak >= total or shapes != [(2, steps - 1, ploidy, n_pos)] or not finite):
+        _fail("phase W (block)")
+
+
+def phase_w_exact(device, chains=256, steps=300, burn=60):
+    """The torch de novo sampler on the card against exact enumeration
+    over the full haplotype space, on the CPU tests' cases
+    (tests/test_torch_assemble_mcmc.py): ploidy 14 over 2 biallelic SNVs,
+    9 rungs, F = 0 and F = 0.2 in one block, two intervals.  CUDA's
+    Philox stream is not the CPU's, so this is the sampler's check on
+    the card.  Bound: 0.05 per genotype."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.models.assemble import fit_denovo_multi
+    from mchap_tpu_torch.numerics.combinadics import (
+        enumerate_genotypes,
+        genotype_alleles_as_index,
+    )
+    from mchap_tpu_torch.ops import exact
+    from mchap_tpu_torch.ops.priors import log_genotype_prior
+    from mchap_tpu_torch.testing import simulate_reads
+    from mchap_tpu_torch.utils import fallback
+
+    panel = np.array([[0, 0], [0, 1], [1, 0], [1, 1]], np.int8)
+    truth = np.array([[0, 0], [0, 0], [0, 1], [1, 1]], np.int8)
+    worst = 0.0
+    for label, ploidy, kw, inbreeding in (
+        ("P14", 14, dict(fix_homozygous=1.1), (None,)),
+        ("9 rungs", 4, dict(temperatures=W_LADDER), (None,)),
+        ("F = 0 and 0.2", 4, {}, (0.0, 0.2)),
+        ("n_intervals=2", 4, dict(n_intervals=2), (None,)),
+    ):
+        haps = truth if ploidy == 4 else np.concatenate([truth] * 3 + [panel[1:3]])
+        reads = simulate_reads(haps, n_alleles=2, n_reads=8 if ploidy == 4 else 6,
+                               qual=(15, 25), seed=3)
+        problems = [dict(reads=reads, counts=np.ones(len(reads)), n_alleles=[2, 2])
+                    for _ in inbreeding]
+        if inbreeding[0] is not None:
+            problems = [dict(p, inbreeding=f) for p, f in zip(problems, inbreeding)]
+        fallback.PATHS.clear()
+        if "n_intervals" in kw:
+            from mchap_tpu_torch.models.assemble import DenovoMCMC
+
+            traces = [DenovoMCMC(ploidy=ploidy, n_alleles=[2, 2], steps=steps,
+                                 chains=chains, random_seed=7, device=device,
+                                 **kw).fit(reads).burn(burn)]
+        else:
+            traces = fit_denovo_multi(problems, ploidy, steps=steps, chains=chains,
+                                      burn=burn, random_seed=7, device=device, **kw)
+        routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
+        llks = exact.genotype_likelihoods(reads, ploidy, panel)
+        errs = []
+        for f, trace in zip(inbreeding, traces):
+            want = llks
+            if f is not None:
+                table = torch.tensor(enumerate_genotypes(4, ploidy))
+                want = llks + log_genotype_prior(table, 4, inbreeding=f)
+            want = exact.genotype_posteriors(want).numpy()
+            g = trace.genotypes
+            codes = np.sort(g[..., 0] * 2 + g[..., 1], axis=-1).reshape(-1, ploidy)
+            got = np.bincount(genotype_alleles_as_index(codes), minlength=len(want))
+            errs.append(np.abs(got / got.sum() - want).max())
+        print(f"phase W (exact, {label}): routes {routes}, max |sampled - exact| per"
+              f" genotype {max(errs):.4f} (bound 0.05) over {chains} chains x"
+              f" {steps - burn} kept steps", flush=True)
+        if routes != ["torch"] or not max(errs) < 0.05:
+            _fail(f"phase W (exact, {label})")
+        worst = max(worst, max(errs))
+    return worst
+
+
+def phase_w_assemble(device, data):
+    """``mchap assemble --use-dirmul-prior FILE`` end to end on phase C's
+    reads, the first sample at F = 0 and the others at 0.1 (breeders
+    write such a file when one parent is outbred): every block takes the
+    torch de novo sampler.  Then the sampler's ms per step at the largest
+    call's shape, eager and through its CUDA graph, with the same draws."""
+    import torch
+
+    from test_torch_fixtures import parse_vcf_records
+
+    from mchap_tpu_torch.utils import fallback
+
+    n_loci = 20
+    path = WORK / "assemble" / "inbreeding.txt"
+    path.write_text("".join(f"{s}\t{0.1 if i else 0.0}\n"
+                            for i, s in enumerate(data["samples"])))
+    argv = [
+        "mchap", "assemble", "--bam", *data["bams"], "--ploidy", "4",
+        "--targets", data["targets"], "--variants", data["variants"],
+        "--reference", data["reference"], "--use-dirmul-prior", str(path), *W_STEPS,
+    ]
+    with _denovo_sampler_calls() as calls:
+        rc, vcf, wall, launches, timers = _run_cli(argv)
+    (WORK / "assemble" / "out_mixed_f.vcf").write_text(vcf)
+    records = parse_vcf_records(vcf)
+    agree, total = _truth_agreement(records, data["truth"])
+    frac = agree / max(total, 1)
+    k1 = launches["denovo_sampler"]
+    routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
+    steps = int(W_STEPS[1])
+    sampler_s = timers.stages.get("device.torch_sampler", float("nan"))
+    print(
+        f"phase W: assemble --use-dirmul-prior (F = 0 for {data['samples'][0]}, 0.1"
+        f" for the rest) {' '.join(W_STEPS)} exit {rc}, {len(records)} records, K1"
+        f" launches {k1}, de novo routes {routes}, sampler calls {len(calls)}, GT =="
+        f" truth {agree}/{total} = {frac:.4f} (bound 0.90); wall {wall:.2f} s ="
+        f" {n_loci / wall:.3f} loci/s; torch sampler {sampler_s:.2f} s ="
+        f" {1e3 * sampler_s / steps:.2f} ms per step over its {len(calls)} calls",
+        flush=True,
+    )
+    for line in timers.summary_lines():
+        print("phase W timing:", line, flush=True)
+    if (rc != 0 or len(records) != n_loci or k1 != 0 or routes != ["torch"]
+            or total != 440 or frac < 0.90):
+        _fail("phase W (assemble)")
+
+    args, kw = max(calls, key=lambda c: c[0][1].numel())
+    S, C, P, NB = args[1].shape
+    shape = dict(S=S, chains=C, P=P, NB=NB, R=args[2].shape[1], A=args[2].shape[-1],
+                 rungs=len(args[6]), prior=kw.get("inbreeding") is not None)
+    eager_ms, eager = _time_torch_sampler(args, kw, cuda_graph=False)
+    graph_ms, graph = _time_torch_sampler(args, kw, cuda_graph=True)
+    same = all(torch.equal(a, b) for a, b in zip(eager, graph))
+    print(f"phase W sampler at the largest call's shape {json.dumps(shape)}: eager"
+          f" {eager_ms:.2f} ms per step, CUDA graph {graph_ms:.2f} ms per step;"
+          f" traces identical {same}", flush=True)
+    if not same:
+        _fail("phase W (graph vs eager)")
+    return dict(eager_ms=eager_ms, graph_ms=graph_ms, shape=shape,
+                sampler_ms_per_step=1e3 * sampler_s / steps)
+
+
+def phase_x(device, data):
+    """``mchap call-exact`` end to end on phase C's reads with phase C's
+    output VCF as the panel (as phase G): the block path; then with
+    ``--report GP``, which sends every locus down the per-locus path and
+    must give the same GTs."""
+    from test_torch_fixtures import parse_vcf_records
+
+    from mchap_tpu_torch.utils import fallback
+
+    n_loci = 20
+    g_calls = {rec["ID"]: {s: c["GT"] for s, c in rec["calls"].items()}
+               for rec in parse_vcf_records((WORK / "assemble" / "call.vcf").read_text())}
+    argv = [
+        "mchap", "call-exact", "--bam", *data["bams"], "--ploidy", "4",
+        "--haplotypes", str(data["assembled"]), "--reference", data["reference"],
+    ]
+    gts = {}
+    for label, extra in (("block", []), ("per-locus, --report GP", ["--report", "GP"])):
+        rc, vcf, wall, _, timers = _run_cli(argv + extra)
+        routes = sorted(path for (site, path) in fallback.PATHS if site == "call-exact")
+        records = parse_vcf_records(vcf)
+        agree, total = _truth_agreement(records, data["truth"])
+        frac = agree / max(total, 1)
+        incomplete = sum("." in c["GT"] for rec in records if rec["FILTER"] == "PASS"
+                         for c in rec["calls"].values())
+        gts[label] = {rec["ID"]: {s: c["GT"] for s, c in rec["calls"].items()}
+                      for rec in records}
+        same_g = sum(gts[label][r][s] == g_calls.get(r, {}).get(s)
+                     for r in gts[label] for s in gts[label][r])
+        print(f"phase X ({label}): call-exact exit {rc}, {len(records)} records, routes"
+              f" {routes}, GT with '.' in PASS records {incomplete}, GT == truth"
+              f" {agree}/{total} = {frac:.4f} (bound 0.90), GT == phase G's"
+              f" {same_g}/{total}; wall {wall:.2f} s = {n_loci / wall:.3f} loci/s",
+              flush=True)
+        for line in timers.summary_lines():
+            print(f"phase X ({label}) timing:", line, flush=True)
+        want_route = ["block"] if label == "block" else ["per-locus"]
+        if (rc != 0 or len(records) != n_loci or incomplete or total != 440
+                or frac < 0.90 or routes != want_route):
+            _fail(f"phase X ({label})")
+    same = gts["block"] == gts["per-locus, --report GP"]
+    print(f"phase X: GT of the per-locus path == the block path's: {same}", flush=True)
+    if not same:
+        _fail("phase X (per-locus vs block)")
+
+
+def phase_y(device, data):
+    """``mchap find-snvs`` on phase C's reads, reference and targets, and
+    ``mchap atomize``, where no JAX is installed.  find-snvs: every record
+    inside a target, at least 95% of them at one of the 866 true SNV
+    positions.  atomize reads ``call-exact``'s output over C's founder
+    panel, whose SNVPOS lists the positions where the panel varies:
+    atomize (a copy of mchap_tpu's) raises IndexError on a record with an
+    SNVPOS position where no haplotype varies, which C's assemble output
+    has (ROADMAP, reference faults).  Gate: every record one base at a
+    true SNV position."""
+    from test_torch_fixtures import parse_vcf_records, write_haplotype_vcf
+
+    import warnings
+
+    truth = set()
+    for line in open(data["variants"]):
+        if not line.startswith("#"):
+            chrom, pos = line.split("\t")[:2]
+            truth.add((chrom, int(pos)))
+    targets = [line.split("\t")[:3] for line in open(data["targets"]) if line.strip()]
+
+    def inside(chrom, pos):
+        return any(c == chrom and int(a) < pos <= int(b) for c, a, b in targets)
+
+    argv = ["mchap", "find-snvs", "--bam", *data["bams"], "--reference",
+            data["reference"], "--targets", data["targets"]]
+    rc, vcf, wall, _, _ = _run_cli(argv)
+    sites = [(r["CHROM"], int(r["POS"])) for r in parse_vcf_records(vcf)]
+    outside = sum(not inside(*s) for s in sites)
+    precision = sum(s in truth for s in sites) / max(len(sites), 1)
+    recall = len(truth & set(sites)) / len(truth)
+    print(f"phase Y: find-snvs exit {rc}, {len(sites)} records, outside a target"
+          f" {outside}, at a true SNV {precision:.4f} (bound 0.95), recall of the"
+          f" {len(truth)} true SNVs {recall:.4f}; wall {wall:.2f} s", flush=True)
+    if rc != 0 or not sites or outside or precision < 0.95:
+        _fail("phase Y (find-snvs)")
+
+    panel = write_haplotype_vcf(WORK / "assemble" / "founders.vcf", data)
+    rc, vcf, _, _, _ = _run_cli(["mchap", "call-exact", "--bam", *data["bams"], "--ploidy",
+                                 "4", "--haplotypes", panel, "--reference",
+                                 data["reference"], "--device", device.type])
+    called = WORK / "assemble" / "founders_called.vcf"
+    called.write_text(vcf)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the tool is experimental
+        rc_a, vcf, wall, _, _ = _run_cli(["mchap", "atomize", str(called)])
+    records = parse_vcf_records(vcf)
+    bad = sum(len(r["REF"]) != 1 or (r["CHROM"], int(r["POS"])) not in truth
+              for r in records)
+    print(f"phase Y: atomize of call-exact's output over C's founders exit {rc_a}"
+          f" (call-exact {rc}), {len(records)} records, not one base at a true SNV"
+          f" {bad}; wall {wall:.2f} s", flush=True)
+    if rc != 0 or rc_a != 0 or not records or bad:
+        _fail("phase Y (atomize)")
+
+
 def _card():
     """Name and power limit line, SM count and special-function rate."""
     import torch
@@ -1714,6 +2115,10 @@ def main():
         ("T", lambda: phase_t(device)),
         ("U", lambda: phase_u(device)),
         ("V", lambda: phase_v(device, card)),
+        ("W", lambda: (phase_w_routes(device), phase_w_block(device), phase_w_exact(device),
+                       phase_w_assemble(device, results["C"][1]))[-1]),
+        ("X", lambda: phase_x(device, results["C"][1])),
+        ("Y", lambda: phase_y(device, results["C"][1])),
     ]
     for name, run in runners:
         t = time.perf_counter()
@@ -1756,6 +2161,7 @@ def main():
     for k in kernels:
         k["route"] = "cuda"
         k["library_ms"] = None  # no single PyTorch call computes a sampler step
+    print(f"time: total {time.perf_counter() - t0:.1f} s, build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

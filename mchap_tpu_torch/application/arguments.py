@@ -1,7 +1,6 @@
-"""CLI flag definitions and argument collectors for ``assemble``, ``call``
-and ``call-pedigree``.
+"""CLI flag definitions and argument collectors for the six tools.
 
-Port of those parts of ``mchap_tpu/application/arguments.py``.
+Port of ``mchap_tpu/application/arguments.py``, with ``--device``.
 Mirrors the flag surface of reference ``mchap/application/arguments.py``
 (same flag names, arities, and defaults — see docs/cli-*-help.txt in the
 reference), including the recurring convention that every per-sample
@@ -258,6 +257,36 @@ locus_batch = _p(
     "batches amortise launches and fill the GPU. "
     "The MCHAP_LOCUS_BATCH environment variable overrides this flag.",
 )
+basis_targets = _p(
+    "--targets", type=str, nargs=1, default=[None],
+    help="BED file of intervals within which basis SNVs are identified "
+    "(contig, start, stop mandatory).",
+)
+find_snvs_maf = _p(
+    "--maf", type=float, nargs=1, default=[0.0],
+    help="Minimum sample-population allele frequency to include an allele "
+    "(default = 0.0).",
+)
+find_snvs_mad = _p(
+    "--mad", type=int, nargs=1, default=[0],
+    help="Minimum sample-population allele depth to include an allele "
+    "(default = 0).",
+)
+find_snvs_ind_maf = _p(
+    "--ind-maf", type=float, nargs=1, default=[0.1],
+    help="Minimum within-individual allele frequency to include an allele "
+    "(default = 0.1).",
+)
+find_snvs_ind_mad = _p(
+    "--ind-mad", type=int, nargs=1, default=[3],
+    help="Minimum within-individual allele depth to include an allele "
+    "(default = 3).",
+)
+find_snvs_min_ind = _p(
+    "--min-ind", type=int, nargs=1, default=[1],
+    help="Minimum number of individuals meeting the --ind-maf and --ind-mad "
+    "thresholds (default = 1).",
+)
 device = _p(
     "--device", type=str, nargs=1, default=["cuda"],
     choices=["cuda", "cpu"],
@@ -307,7 +336,13 @@ ASSEMBLE_MCMC_PARSER_ARGUMENTS = (
     + OUTPUT_ARGUMENTS
     + CORES_ARGUMENTS
 )
-
+CALL_EXACT_PARSER_ARGUMENTS = (
+    SAMPLE_DIRMUL_ARGUMENTS
+    + LOCI_KNOWN_ARGUMENTS
+    + READ_ENCODING_ARGUMENTS
+    + OUTPUT_ARGUMENTS
+    + CORES_ARGUMENTS
+)
 CALL_MCMC_PARSER_ARGUMENTS = (
     SAMPLE_DIRMUL_ARGUMENTS
     + LOCI_KNOWN_ARGUMENTS
@@ -585,6 +620,15 @@ def collect_default_program_arguments(arguments, skip_inbreeding=False):
         locus_batch=arguments.locus_batch[0],
         device=arguments.device[0],
     )
+
+
+def collect_call_exact_program_arguments(arguments):
+    data = collect_default_program_arguments(arguments)
+    data["vcf"] = arguments.haplotypes[0]
+    data["random_seed"] = None
+    data["prior_frequencies_tag"] = arguments.use_dirmul_prior[1]
+    data["filter_input_haplotypes"] = arguments.filter_input_haplotypes[0]
+    return data
 
 
 def collect_default_mcmc_program_arguments(arguments):

@@ -2,8 +2,9 @@
 
 Reference: mchap/application/assemble.py; port of
 ``mchap_tpu/application/assemble.py``.  Every (locus, sample) problem of
-a block runs through one launch of the de novo sampler (K1).  A failed
-block fails the run: nothing falls back to another path.
+a block runs through one call of the de novo sampler: K1, or the torch
+de novo sampler where K1 cannot run the block (``models/assemble.py``).
+A failed block fails the run: nothing falls back to another path.
 """
 
 import argparse
@@ -40,7 +41,6 @@ from mchap_tpu_torch.models.assemble import (
     call_posterior_haplotypes,
     fit_denovo_batch,
     fit_denovo_multi,
-    refuse_unsupported,
 )
 from mchap_tpu_torch.numerics.combinadics import (
     count_unique_genotypes,
@@ -79,12 +79,6 @@ class program(baseclass.program):
             sys.exit(1)
         args = parser.parse_args(command[2:])
         arguments = collect_assemble_mcmc_program_arguments(args)
-        inbreeding = arguments["sample_inbreeding"]
-        for sample, temps in arguments["sample_mcmc_temperatures"].items():
-            refuse_unsupported(
-                arguments["sample_ploidy"][sample], None, 0, len(temps),
-                None if inbreeding is None else list(inbreeding.values()),
-            )
         arguments["device"] = resolve_device(arguments["device"])
         return cls(cli_command=command, **arguments)
 

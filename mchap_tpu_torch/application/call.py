@@ -22,11 +22,14 @@ from mchap_tpu_torch.application.arguments import (
 from mchap_tpu_torch.application.baseclass import (
     ALT,
     FILTER,
-    LOCUS_ASSEMBLY_ERROR,
     REF,
     SAMPLE_ASSEMBLY_ERROR,
     LocusAssemblyError,
     SampleAssemblyError,
+)
+from mchap_tpu_torch.application.call_exact import (
+    _fill_invalid_sampledata,
+    _locus_error,
 )
 from mchap_tpu_torch.encoding.integer import minimum_error_correction
 from mchap_tpu_torch.io import vcf as VCF
@@ -40,40 +43,6 @@ from mchap_tpu_torch.numerics.logprob import natural_log_to_log10
 from mchap_tpu_torch.ops import exact
 from mchap_tpu_torch.utils import timing
 from mchap_tpu_torch.utils.device import resolve_device
-
-
-def _fill_invalid_sampledata(data):
-    """All-nan sample fields for NOA/AF0 loci; reference call_exact.py:91-107.
-
-    A copy of ``mchap_tpu/application/call_exact.py::_fill_invalid_sampledata``.
-    """
-    for sample in data.samples:
-        ploidy = data.sample_ploidy[sample]
-        data.sampledata[VCF.FORMAT_GT][sample] = np.full(ploidy, -1, int)
-        for f in (
-            VCF.FORMAT_GQ,
-            VCF.FORMAT_GPM,
-            VCF.FORMAT_SPM,
-            VCF.FORMAT_SQ,
-            VCF.FORMAT_MCI,
-            VCF.FORMAT_MEC,
-            VCF.FORMAT_MECP,
-        ):
-            data.sampledata[f][sample] = np.nan
-        for f in (
-            VCF.FORMAT_ACP,
-            VCF.FORMAT_AFP,
-            VCF.FORMAT_AOP,
-            VCF.FORMAT_GP,
-            VCF.FORMAT_GL,
-        ):
-            data.sampledata[f][sample] = np.array([np.nan])
-
-
-def _locus_error(locus):
-    return LOCUS_ASSEMBLY_ERROR.format(
-        name=locus.name, contig=locus.contig, start=locus.start, stop=locus.stop
-    )
 
 
 @dataclass

@@ -21,7 +21,7 @@ from mchap_tpu_torch.application.arguments import (
     CALL_PEDIGREE_MCMC_PARSER_ARGUMENTS,
     collect_call_pedigree_mcmc_program_arguments,
 )
-from mchap_tpu_torch.application.call import _fill_invalid_sampledata
+from mchap_tpu_torch.application.call_exact import _fill_invalid_sampledata
 from mchap_tpu_torch.application.baseclass import (
     ALT,
     FILTER,

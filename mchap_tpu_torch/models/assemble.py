@@ -2,13 +2,21 @@
 
 Port of ``mchap_tpu/models/assemble.py`` (reference
 ``mchap/assemble/mcmc.py`` and ``classes.py``).  Every (locus, sample)
-problem of a block and its chains run through one launch of K1
-(``ops/cuda_denovo.py``): the CUDA kernel on a card, its plain PyTorch
-version on the CPU.  Homozygote-fixed positions stay in the state with
-n_alleles = 1, and the wrapper compacts each problem's het positions to
-the front before the launch.  A tempering ladder (``temperatures``) and
-the Dirichlet-multinomial prior (per-sample ``inbreeding``) run inside
-K1; what K1 cannot run is refused up front (``refuse_unsupported``).
+problem of a block and its chains run through one sampler call, on a
+route chosen before any device work:
+
+- K1 (``ops/cuda_denovo.py``): the CUDA kernel on a card, its plain
+  PyTorch version on the CPU, with the tempering ladder
+  (``temperatures``) and the Dirichlet-multinomial prior (per-sample
+  ``inbreeding``);
+- the torch de novo sampler (``ops/assemble_mcmc.py``) for the whole
+  block when ``cuda_denovo.k1_unsupported_reason`` names a reason (a
+  prior where some sample has inbreeding 0, more than 8 rungs, ploidy
+  above 12, a rung state above K1's slot) or a fixed interval count is
+  asked for, as ``mchap_tpu`` sends those blocks to its XLA sampler.
+
+Homozygote-fixed positions stay in the state with n_alleles = 1, and
+both routes compact each problem's het positions to the front first.
 """
 
 from collections import Counter
@@ -20,7 +28,7 @@ import torch
 from scipy import stats as _stats
 
 from mchap_tpu_torch import mset
-from mchap_tpu_torch.ops import assemble_mcmc as _screen
+from mchap_tpu_torch.ops import assemble_mcmc as _sampler
 from mchap_tpu_torch.ops.cuda_denovo import (
     denovo_sampler,
     draw_layout,
@@ -28,7 +36,7 @@ from mchap_tpu_torch.ops.cuda_denovo import (
     next_pow2,
     unpack_genotype_trace,
 )
-from mchap_tpu_torch.ops.likelihood import MIN_LOG
+from mchap_tpu_torch.ops.likelihood import MIN_LOG, prepare_reads
 from mchap_tpu_torch.ops.trace_tab import (
     decode_tabulated_states,
     tabulate_packed_trace,
@@ -84,20 +92,6 @@ def pad_reads_bucket(reads_list, counts_list, min_bucket=8, fill=np.nan):
     return reads, counts
 
 
-def refuse_unsupported(ploidy, n_reads_bucket, n_base, n_temps, inbreeding):
-    """Raise NotImplementedError, before any device work, for a
-    configuration K1 cannot run (``k1_unsupported_reason``): the port
-    has no other de novo sampler yet."""
-    reason = k1_unsupported_reason(
-        ploidy, n_reads_bucket, n_base, n_temps, inbreeding
-    )
-    if reason is not None:
-        raise NotImplementedError(
-            f"the de novo sampler K1 cannot run {reason}; the torch de novo"
-            " sampler that would is not ported yet (ROADMAP queue 1, item 2)"
-        )
-
-
 @dataclass
 class DenovoMCMC:
     """De novo assembly sampler; attributes as reference mcmc.py:24-100.
@@ -129,11 +123,6 @@ class DenovoMCMC:
         Reference semantics: mcmc.py:103-265 (zero-read mock, homozygote
         fixing, read-mean initialisation, all-fixed shortcut).
         """
-        if self.n_intervals is not None:
-            raise NotImplementedError(
-                "fixed n_intervals is not ported; K1 draws Bernoulli"
-                " interval partitions"
-            )
         reads = np.asarray(reads, float)
         n_reads, n_pos, max_allele = reads.shape
         if n_reads == 0:
@@ -160,8 +149,60 @@ class DenovoMCMC:
             self.partial_dosage_step_probability,
             self.dosage_step_probability, self.temperatures,
             self.random_seed, device=resolve_device(self.device),
-            tabulate=False, initial=initial,
+            tabulate=False, initial=initial, n_intervals=self.n_intervals,
         )[0]
+
+
+def _compact_het(log_reads, counts, init, n_alleles_eff, multiple):
+    """Compact each problem's het positions to the front of the position
+    axis.
+
+    Fixed and padding positions (n_alleles <= 1) never move, and a
+    sweep's cost is linear in the position count: keep each problem's het
+    positions (stable, so their order is kept) in a prefix as wide as the
+    widest problem's, rounded up to ``multiple``.  This is exact: a fixed
+    column is equal across rows, so it changes no segment label, no row
+    equality and no likelihood ratio; it adds a genotype-independent
+    constant to every rh row, so dropping it shifts each problem's llk by
+    sum_r c_r * sum_{j fixed} lr[r, j, fixed_allele], returned as
+    ``fix_llk`` [S] for the caller to add back.  Returns (log_reads,
+    init, n_alleles_eff, fix_llk, restore); ``restore(arr, i)`` maps
+    problem i's [..., kept] columns back to the full axis.
+    """
+    n_samples, _, n_pos_full, _ = log_reads.shape
+    het = n_alleles_eff > 1  # [S, NB]
+    nb_eff = max(int(het.sum(axis=1).max(initial=1)), 1)
+    nb_eff = min(n_pos_full, (nb_eff + multiple - 1) // multiple * multiple)
+    fix_llk = np.zeros(n_samples)
+    if nb_eff == n_pos_full:
+        return log_reads, init, n_alleles_eff, fix_llk, lambda arr, i: arr
+    sel = np.argsort(~het, axis=1, kind="stable")[:, :nb_eff]  # het first
+    if not bool(np.all((init == init[:, :1, :1, :]) | het[:, None, None, :])):
+        raise ValueError(
+            "het compaction: init differs across chains/rows at a fixed position"
+        )
+    fixed_allele = init[:, 0, 0, :]  # fixed columns: all rows equal
+    lr_fix = np.take_along_axis(
+        log_reads, fixed_allele[:, None, :, None].astype(np.int64), axis=3
+    )[..., 0]  # [S, R, NB]
+    # the constant covers only the positions left out
+    kept = np.zeros((n_samples, n_pos_full), bool)
+    np.put_along_axis(kept, sel, True, axis=1)
+    fix_llk = (np.where(kept[:, None, :], 0.0, lr_fix).sum(axis=2) * counts).sum(axis=1)
+
+    def restore(arr, i):
+        inv = np.full(n_pos_full, -1, np.int64)
+        inv[sel[i]] = np.arange(nb_eff)
+        gathered = arr[..., np.maximum(inv, 0)]
+        return np.where(inv >= 0, gathered, fixed_allele[i]).astype(arr.dtype)
+
+    return (
+        np.take_along_axis(log_reads, sel[:, None, :, None], axis=2),
+        np.take_along_axis(init, sel[:, None, None, :], axis=3),
+        np.take_along_axis(n_alleles_eff, sel, axis=1),
+        fix_llk,
+        restore,
+    )
 
 
 def _fit_denovo_batch_kernel(
@@ -191,55 +232,10 @@ def _fit_denovo_batch_kernel(
     # break count over the ORIGINAL position axis (mcmc.py:429-452)
     mean_breaks = (break_dist * np.arange(n_pos_full)[None, :]).sum(-1)
 
-    # --- het-position compaction -------------------------------------
-    # Fixed and padding positions (n_alleles <= 1) never move, and the
-    # sweep cost is linear in NB: compact each problem's het positions
-    # to the front (stable, so relative order is kept), run the kernel
-    # on the max-het-width prefix, and restore the fixed columns after.
-    # Fixed columns add a genotype-independent constant to every rh row,
-    # so dropping them shifts each problem's llk by
-    # sum_r c_r * sum_{j fixed} lr[r, j, fixed_allele], added back below.
-    het = n_alleles_eff > 1  # [S, NB]
-    nb_eff = int(het.sum(axis=1).max(initial=1))
-    nb_eff = min(n_pos_full, (max(nb_eff, 1) + 7) // 8 * 8)
-    restore = None
-    fix_llk = np.zeros(n_samples)
-    if nb_eff < n_pos_full:
-        order = np.argsort(~het, axis=1, kind="stable")  # het first
-        sel = order[:, :nb_eff]  # [S, nb_eff]
-        if not bool(
-            np.all((init == init[:, :1, :1, :]) | het[:, None, None, :])
-        ):
-            raise ValueError(
-                "het compaction: init differs across chains/rows at a"
-                " fixed position"
-            )
-        fixed_allele_full = init[:, 0, 0, :]  # fixed cols: all rows equal
-        lr_fix = np.take_along_axis(
-            log_reads, fixed_allele_full[:, None, :, None].astype(np.int64),
-            axis=3,
-        )[..., 0]  # [S, R, NB]
-        # the constant covers only positions outside the kernel
-        in_kernel = np.zeros((n_samples, n_pos_full), bool)
-        np.put_along_axis(in_kernel, sel, True, axis=1)
-        fix_llk = (
-            np.where(in_kernel[:, None, :], 0.0, lr_fix).sum(axis=2) * counts
-        ).sum(axis=1)
-        log_reads = np.take_along_axis(log_reads, sel[:, None, :, None], axis=2)
-        init = np.take_along_axis(init, sel[:, None, None, :], axis=3)
-        n_alleles_eff = np.take_along_axis(n_alleles_eff, sel, axis=1)
-        restore = (sel, fixed_allele_full)
+    log_reads, init, n_alleles_eff, fix_llk, restore = _compact_het(
+        log_reads, counts, init, n_alleles_eff, multiple=8
+    )
     n_pos = log_reads.shape[2]
-
-    def _restore_cols(arr, i):
-        """Compact [..., nb_eff] positions back to [..., n_pos_full]."""
-        if restore is None:
-            return arr
-        sel_r, fa_full = restore
-        inv = np.full(n_pos_full, -1, np.int64)
-        inv[sel_r[i]] = np.arange(n_pos)
-        gathered = arr[..., np.maximum(inv, 0)]
-        return np.where(inv >= 0, gathered, fa_full[i]).astype(arr.dtype)
 
     b = n_samples * chains
 
@@ -295,7 +291,7 @@ def _fit_denovo_batch_kernel(
             llks_r = llks_h.reshape(k, n_samples, chains).transpose(1, 2, 0)
             return [
                 TabulatedGenotypeTrace(
-                    _restore_cols(st[i], i),
+                    restore(st[i], i),
                     cnts[i],
                     firsts[i],
                     (llks_r[i] + fix_llk[i]).astype(float),
@@ -318,9 +314,60 @@ def _fit_denovo_batch_kernel(
     out = []
     for i in range(n_samples):
         t = GenotypeMultiTrace(
-            _restore_cols(genotypes[i], i),
-            (llks[i] + fix_llk[i]).astype(float),
+            restore(genotypes[i], i), (llks[i] + fix_llk[i]).astype(float)
         )
+        t.pre_burned = burn
+        out.append(t)
+    return out
+
+
+def _fit_denovo_batch_torch(
+    reads, counts, init, n_alleles_eff, break_dist, ploidy, steps, chains,
+    seed, p_recomb, p_partial, p_full, device, burn=0, temperatures=(1.0,),
+    inbreeding=None,
+):
+    """Run all problems x chains x rungs through the torch de novo sampler
+    (``ops/assemble_mcmc.denovo_sampler``) on ``device``.
+
+    reads f64[S, R, NB, A] (nan gaps), counts [S, R], init [S, chains, P,
+    NB], n_alleles_eff [S, NB] (1 = fixed), break_dist [S, NB],
+    ``inbreeding`` [S] the prior's (None: no prior).  Het positions are
+    compacted first (``_compact_het``); the break-count distribution is
+    cut to the kept width, with the mass of larger counts on the largest.
+    The burn-in is dropped on the device.  Returns one untabulated trace
+    of the kept steps per problem.
+    """
+    log_reads = prepare_reads(reads).numpy()
+    log_reads, init, n_alleles_eff, fix_llk, restore = _compact_het(
+        log_reads, counts, np.asarray(init), n_alleles_eff, multiple=1
+    )
+    n_pos = log_reads.shape[2]
+    dist = np.array(break_dist[:, :n_pos], float)
+    dist[:, -1] += break_dist[:, n_pos:].sum(axis=1)
+
+    def _dev(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype).to(device)
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    with _timing.stage("device.torch_sampler"):
+        genotypes, llks = _sampler.denovo_sampler(
+            generator, _dev(init, torch.long), _dev(log_reads, torch.float64),
+            _dev(counts, torch.float64), _dev(n_alleles_eff, torch.long),
+            _dev(dist, torch.float64), temperatures, n_steps=steps, burn=burn,
+            inbreeding=None if inbreeding is None else _dev(inbreeding, torch.float64),
+            recombination_step_probability=p_recomb,
+            partial_dosage_step_probability=p_partial,
+            dosage_step_probability=p_full,
+        )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    with _timing.stage("device.trace_fetch"):
+        genotypes = genotypes.cpu().numpy()
+        llks = llks.cpu().numpy()
+    out = []
+    for i in range(len(genotypes)):
+        t = GenotypeMultiTrace(restore(genotypes[i], i), llks[i] + fix_llk[i])
         t.pre_burned = burn
         out.append(t)
     return out
@@ -379,24 +426,31 @@ def _fit_denovo_core(
     steps, chains, alpha, beta, fix_homozygous,
     recombination_step_probability, partial_dosage_step_probability,
     dosage_step_probability, temperatures, random_seed, burn=0, *,
-    device, tabulate=True, initial=None,
+    device, tabulate=True, initial=None, n_intervals=None,
 ):
     """Shared batched-assembly core over pre-padded arrays.
 
     ``n_alleles_mat`` is per problem ([S, nb]); positions with
     n_alleles <= 1 (cross-locus padding) are forced homozygous-fixed at
     allele 0.  ``inbreeding`` [S] selects the Dirichlet-multinomial
-    prior (None: flat).  Initial genotypes and the sampler seed both
-    come from one ``torch.Generator`` seeded with ``random_seed``.
+    prior (None: flat).  ``n_intervals`` fixes the interval count of the
+    structural steps (None: a discretised Beta(alpha, beta) over break
+    counts).  The route is chosen here, before any device work: K1, or
+    the torch de novo sampler for the whole block where K1 cannot run it
+    (``k1_unsupported_reason``) or ``n_intervals`` is given.  Initial
+    genotypes and the sampler seed both come from one ``torch.Generator``
+    seeded with ``random_seed``.
     """
     temps = np.sort(np.asarray(temperatures, float))
     if temps[-1] != 1.0:
         raise ValueError("the last (coldest) temperature must be 1.0")
     n_samples, n_reads, n_pos, _ = reads.shape
-    refuse_unsupported(ploidy, n_reads, n_pos, len(temps), inbreeding)
+    on_k1 = n_intervals is None and k1_unsupported_reason(
+        ploidy, n_reads, n_pos, len(temps), inbreeding
+    ) is None
 
     with _timing.stage("device.homfilter"):
-        hom = _screen.homozygosity_probabilities_batch(
+        hom = _sampler.homozygosity_probabilities_batch(
             reads, n_alleles_mat, ploidy, read_counts_b=counts,
             inbreeding_b=inbreeding,
         )  # [S, nb, A]
@@ -407,7 +461,7 @@ def _fit_denovo_core(
     n_alleles_eff = np.where(homozygous, 1, n_alleles_mat).astype(np.int32)
     n_het = (~homozygous).sum(axis=-1)
     alphas = None
-    if inbreeding is not None:
+    if inbreeding is not None and on_k1:
         # DM dispersion (1 - F) / F / u_haps over the haplotypes that the
         # fixed genotype space allows (reference prior.py:81-112)
         f = np.asarray(inbreeding, float)
@@ -416,7 +470,10 @@ def _fit_denovo_core(
 
     break_dist = np.zeros((n_samples, n_pos))
     for i in range(n_samples):
-        if n_het[i] > 0:
+        if n_intervals is not None:
+            # the point mass of mchap_tpu/models/assemble.py:131-136
+            break_dist[i, min(n_intervals - 1, n_pos - 1)] = 1.0
+        elif n_het[i] > 0:
             break_dist[i, : n_het[i]] = _point_beta_probabilities(
                 int(n_het[i]), alpha, beta
             )
@@ -444,17 +501,27 @@ def _fit_denovo_core(
             )
     kernel_seed = int(torch.randint(0, 2**62, (1,), generator=gen))
 
-    with np.errstate(divide="ignore", invalid="ignore"):
-        lr_host = np.maximum(
-            np.log(np.where(np.isnan(reads), 1.0, reads)), MIN_LOG
-        ).astype(np.float32)
-    traces = _fit_denovo_batch_kernel(
-        lr_host, counts, init, n_alleles_eff, break_dist, ploidy, steps,
-        chains, kernel_seed, recombination_step_probability,
-        partial_dosage_step_probability, dosage_step_probability, device,
-        burn=burn, tabulate=tabulate, temperatures=tuple(temps), alphas=alphas,
-    )
-    _fallback.note_path("denovo", "cuda" if device.type == "cuda" else "plain")
+    if on_k1:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            lr_host = np.maximum(
+                np.log(np.where(np.isnan(reads), 1.0, reads)), MIN_LOG
+            ).astype(np.float32)
+        traces = _fit_denovo_batch_kernel(
+            lr_host, counts, init, n_alleles_eff, break_dist, ploidy, steps,
+            chains, kernel_seed, recombination_step_probability,
+            partial_dosage_step_probability, dosage_step_probability, device,
+            burn=burn, tabulate=tabulate, temperatures=tuple(temps), alphas=alphas,
+        )
+        _fallback.note_path("denovo", "cuda" if device.type == "cuda" else "plain")
+    else:
+        traces = _fit_denovo_batch_torch(
+            reads, counts, init, n_alleles_eff, break_dist, ploidy, steps,
+            chains, kernel_seed, recombination_step_probability,
+            partial_dosage_step_probability, dosage_step_probability, device,
+            burn=burn, temperatures=temps,
+            inbreeding=None if inbreeding is None else np.asarray(inbreeding, float),
+        )
+        _fallback.note_path("denovo", "torch")
     out = []
     kept = steps - burn
     for i in range(n_samples):

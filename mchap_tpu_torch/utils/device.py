@@ -24,3 +24,14 @@ def resolve_device(name="cuda"):
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", 0)
     return device
+
+
+def memory_budget(device):
+    """Bytes one batched call may fill with its temporaries on ``device``:
+    a quarter of what the card has free, counting what PyTorch's
+    allocator holds unused; 2 GiB on the CPU."""
+    if device.type != "cuda":
+        return 2 << 30
+    free = torch.cuda.mem_get_info(device)[0]
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return (free + cached) // 4

@@ -71,18 +71,45 @@ def test_assemble_decisions_match_jax(dataset):
 )
 def test_unported_options_raise(dataset, extra, tmp_path):
     """What K1 cannot run (9 rungs, ploidy 13, a prior with some samples
-    at inbreeding 0) is refused before any read is encoded."""
+    at inbreeding 0) takes the torch de novo sampler and reaches
+    mchap_tpu's decisions (GT and ALT, alleles named by sequence).
+
+    Ploidy 13 runs on data drawn at ploidy 13 (1 locus of 3 biallelic SNVs,
+    520 reads per sample), where the dosage of each haplotype is clear;
+    the tetraploid dataset would leave it to sampling noise."""
+    from test_torch_assemble_options_cli import _decisions
+
+    from mchap_tpu_torch.utils import fallback
+
+    if extra == ["--ploidy", "13"]:
+        dataset = write_dataset(tmp_path, ploidy=13, reads_per_sample=520, n_loci=1,
+                                snvs_per_locus=3, n_triallelic=0, seed=0)
     if extra == ["mixed-inbreeding"]:
         path = tmp_path / "inbreeding.txt"
         path.write_text("".join(
             f"{s}\t{0.1 if i else 0.0}\n" for i, s in enumerate(dataset["samples"])
         ))
         extra = ["--use-dirmul-prior", str(path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-        _run(torch_main, _argv(dataset, "--device", "cpu", *extra))
+    extra = [*extra, "--mcmc-steps", "80", "--mcmc-burn", "20"]
+    fallback.PATHS.clear()
+    rc_t, vcf_t = _run(torch_main, _argv(dataset, "--device", "cpu", *extra))
+    assert {path for site, path in fallback.PATHS if site == "denovo"} == {"torch"}
+    rc_j, vcf_j = _run(jax_main, _argv(dataset, *extra))
+    assert rc_t == rc_j == 0
+    got, want = parse_vcf_records(vcf_t), parse_vcf_records(vcf_j)
+    assert len(got) == len(want) == len(dataset["truth"])
+    for g, w in zip(got, want):
+        assert _decisions(g)["calls"] == _decisions(w)["calls"], g["ID"]
+        assert _decisions(g)["alts"] == _decisions(w)["alts"], g["ID"]
 
 
 def test_unported_tools_exit_nonzero(capsys):
-    assert torch_main(["mchap", "call-exact"]) != 0
-    assert "not ported yet" in capsys.readouterr().err
-    assert torch_main(["mchap", "bogus"]) != 0
+    """An unknown tool exits 2; call-exact, find-snvs and atomize, which
+    the port now runs, parse --help."""
+    assert torch_main(["mchap", "bogus"]) == 2
+    assert "unknown tool" in capsys.readouterr().err
+    for tool in ("call-exact", "find-snvs", "atomize"):
+        with pytest.raises(SystemExit) as exit_:
+            torch_main(["mchap", tool, "--help"])
+        assert exit_.value.code == 0
+        assert "usage" in capsys.readouterr().out

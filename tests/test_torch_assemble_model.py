@@ -8,7 +8,8 @@
 - Combinadics, the dosage table, the homozygosity screen (flat and with
   the prior) and exact genotype likelihoods/posteriors: f64, 1e-6
   relative.
-- What K1 cannot run raises NotImplementedError before any work.
+- What K1 cannot run takes the torch de novo sampler, chosen before any
+  work (``note_path("denovo", "torch")``).
 """
 
 import jax.numpy as jnp
@@ -193,8 +194,11 @@ def test_denovo_mcmc_fits_ploidy_10():
 
 
 def test_denovo_mcmc_fit_and_unported_options():
+    from mchap_tpu_torch.utils import fallback
+
     haps = np.array([[0, 0, 1], [0, 1, 1], [1, 1, 0], [0, 0, 1]])
     reads = simulate_reads(haps, n_alleles=2, n_reads=16, errors=False, seed=4)
+    fallback.PATHS.clear()
     trace = DenovoMCMC(ploidy=4, n_alleles=[2, 2, 2], steps=30, chains=2,
                        random_seed=1, device="cpu").fit(reads)
     assert trace.genotypes.shape == (2, 30, 4, 3)
@@ -204,14 +208,25 @@ def test_denovo_mcmc_fit_and_unported_options():
                        device="cpu").fit(reads)
     assert trace.genotypes.shape == (2, 30, 4, 3)
     assert np.isfinite(trace.llks).all()
-    # what K1 cannot run: a prior over samples some of which have F = 0,
-    # 9 rungs, ploidy 13
+    assert dict(fallback.PATHS) == {("denovo", "plain"): 2}
+    # what K1 cannot run goes to the torch de novo sampler: a prior over
+    # samples some of which have F = 0, 9 rungs, ploidy 13, n_intervals
     problem = dict(reads=reads, counts=np.ones(len(reads)), n_alleles=[2, 2, 2])
-    with pytest.raises(NotImplementedError, match="inbreeding 0.*ROADMAP queue 1, item 2"):
-        fit_denovo_multi([dict(problem, inbreeding=0.1), dict(problem, inbreeding=0.0)],
-                         4, steps=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="9 tempering rungs"):
-        fit_denovo_multi([problem], 4, steps=5, device="cpu",
-                         temperatures=[0.1 * i for i in range(2, 10)] + [1.0])
-    with pytest.raises(NotImplementedError, match="ploidy 13.*ROADMAP queue 1, item 2"):
-        DenovoMCMC(ploidy=13, n_alleles=[2, 2, 2], device="cpu").fit(reads)
+    fallback.PATHS.clear()
+    traces = fit_denovo_multi(
+        [dict(problem, inbreeding=0.1), dict(problem, inbreeding=0.0)], 4, steps=5,
+        fix_homozygous=1.1, device="cpu",
+    )
+    assert [t.genotypes.shape for t in traces] == [(2, 5, 4, 3)] * 2
+    traces += fit_denovo_multi([problem], 4, steps=5, burn=2, fix_homozygous=1.1,
+                               device="cpu",
+                               temperatures=[0.1 * i for i in range(2, 10)] + [1.0])
+    assert traces[-1].genotypes.shape == (2, 3, 4, 3) and traces[-1].pre_burned == 2
+    traces.append(DenovoMCMC(ploidy=13, n_alleles=[2, 2, 2], steps=5, fix_homozygous=1.1,
+                             device="cpu").fit(reads))
+    assert traces[-1].genotypes.shape == (2, 5, 13, 3)
+    traces.append(DenovoMCMC(ploidy=4, n_alleles=[2, 2, 2], steps=5, n_intervals=2,
+                             fix_homozygous=1.1, device="cpu").fit(reads))
+    assert traces[-1].genotypes.shape == (2, 5, 4, 3)
+    assert dict(fallback.PATHS) == {("denovo", "torch"): 4}
+    assert all(np.isfinite(t.llks).all() for t in traces)

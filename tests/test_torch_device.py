@@ -13,6 +13,7 @@ import torch
 
 from mchap_tpu_torch.application.cli import main as torch_main
 from mchap_tpu_torch.models import assemble, calling, pedigree
+from mchap_tpu_torch.ops import exact
 from mchap_tpu_torch.testing import simulate_reads
 from mchap_tpu_torch.utils.device import resolve_device
 from test_torch_fixtures import write_dataset, write_haplotype_vcf
@@ -63,6 +64,10 @@ ENTRY_POINTS = {
         np.full(3, 2), np.array([[-1, -1], [-1, -1], [0, 1]]), np.ones((3, 2), int),
         np.zeros((3, 2)), np.full((3, 2), 0.01), steps=2,
     ),
+    "exact_posterior_stats_multi": lambda: exact.exact_posterior_stats_multi(
+        [dict(reads=READS, counts=np.ones(4), haplotypes=HAPS)], 2
+    ),
+    "posterior_mode": lambda: exact.posterior_mode(READS, 2, HAPS),
 }
 
 
@@ -72,11 +77,13 @@ def test_model_entry_points_default_to_cuda(no_card, name):
         ENTRY_POINTS[name]()
 
 
-@pytest.mark.parametrize("tool", ["assemble", "call", "call-pedigree"])
+@pytest.mark.parametrize("tool", ["assemble", "call", "call-exact", "call-pedigree"])
 def test_cli_defaults_to_cuda(no_card, tmp_path, tool):
     data = write_dataset(tmp_path, n_samples=3, n_loci=1, pedigree=True)
     argv = ["mchap", tool, "--bam", *data["bams"], "--ploidy", "4",
-            "--reference", data["reference"], "--mcmc-steps", "2", "--mcmc-burn", "0"]
+            "--reference", data["reference"]]
+    if tool != "call-exact":
+        argv += ["--mcmc-steps", "2", "--mcmc-burn", "0"]
     if tool == "assemble":
         argv += ["--targets", data["targets"], "--variants", data["variants"]]
     else:
