@@ -7,7 +7,7 @@ in parallel -- ``denovo_sampler.cu`` twice (K1, the de novo sampler,
 flat with K0, one mutation sweep; and K1 with its tempering ladder and
 prior), ``calling_sampler.cu`` (K2, the calling sampler) and
 ``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) -- and runs
-twenty-five phases, each printing its lines:
+twenty-six phases, each printing its lines:
 
 A. K1 vs its plain PyTorch version on the card, pinned noise;
 B. K1 with its own Philox stream vs exact enumeration;
@@ -58,7 +58,14 @@ X. ``mchap call-exact`` end to end on phase C's reads with phase C's
    output VCF as the panel, the block path and (``--report GP``) the
    per-locus path;
 Y. ``mchap find-snvs`` on phase C's files and ``mchap atomize`` on
-   ``call-exact``'s output over C's founder haplotypes.
+   ``call-exact``'s output over C's founder haplotypes;
+Z. a block's problems over a list of devices (``parallel/``): K1 at
+   phase S's shape (flat, and T = 3 with alpha), K2 at phase G's launch
+   shape and K3 through the pedigree model at phase M's, each split
+   three ways on the one card against the unsharded launch (identical
+   genotypes and llks); ``mchap call`` as phase G in two processes on the
+   card, rank 0 writing phase G's records and rank 1 none; the INFO pools
+   on the card against the host formulas.
 
 Each kernel's least time on the card (``bound_ms``) is the largest of
 its f32 operations over 67 TFLOP/s, its f64 operations over 33.5
@@ -81,6 +88,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / ".build" / "chip_smoke"
@@ -336,6 +344,23 @@ def _truth_agreement(records, truth):
     return agree, total
 
 
+def c_dataset():
+    """Phase C's synthetic dataset, written to ``.build/chip_smoke/assemble``
+    (see ``phase_c``)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_fixtures import write_dataset
+
+    from mchap_tpu_torch.constant import PFEIFFER_ERROR
+
+    return write_dataset(
+        WORK / "assemble", n_samples=22, n_loci=20,
+        snvs_per_locus=[44] * 6 + [43] * 14,  # 866 in all
+        ploidy=4, reads_per_sample=64, n_triallelic=5,
+        error_rate=PFEIFFER_ERROR, n_founders=6, locus_length=300,
+        founder_snvs=6, seed=2024,
+    )
+
+
 def phase_c(device, extra=(), label="C", out_name="out.vcf"):
     """``mchap assemble`` at default settings through the CLI entry point
     (phase P adds ``extra`` options).
@@ -349,18 +374,10 @@ def phase_c(device, extra=(), label="C", out_name="out.vcf"):
     from mchap_tpu_torch.utils import fallback
 
     sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_fixtures import parse_vcf_records, write_dataset
-
-    from mchap_tpu_torch.constant import PFEIFFER_ERROR
+    from test_torch_fixtures import parse_vcf_records
 
     n_loci = 20
-    snvs = [44] * 6 + [43] * 14  # 866 in all
-    data = write_dataset(
-        WORK / "assemble", n_samples=22, n_loci=n_loci, snvs_per_locus=snvs,
-        ploidy=4, reads_per_sample=64, n_triallelic=5,
-        error_rate=PFEIFFER_ERROR, n_founders=6, locus_length=300,
-        founder_snvs=6, seed=2024,
-    )
+    data = c_dataset()
     argv = [
         "mchap", "assemble", "--bam", *data["bams"], "--ploidy", "4",
         "--targets", data["targets"], "--variants", data["variants"],
@@ -1636,9 +1653,14 @@ def phase_u(device):
 
 
 W_LADDER = [round(0.1 * i, 1) for i in range(2, 10)] + [1.0]  # 9 rungs: above K1's 8
-# phase W's end-to-end run cuts the default 2000 steps (burn 1000), so
-# that the torch sampler's run at C's width stays within about 240 s
-W_STEPS = ["--mcmc-steps", "600", "--mcmc-burn", "300"]
+# phase W's end-to-end run cuts the default 2 chains x 2000 steps (burn
+# 1000).  A step of the torch sampler costs about the same for any number of
+# chains (its launches set it), so W runs more, shorter chains: on C's 20
+# loci GT == truth read 0.9318 at 6 x 200 steps (burn 100) against 0.9295 at
+# 2 x 600 (burn 300), 0.9227 at 8 x 160 and 0.8977 at 4 x 240, and the run
+# took 62 s against 100 s (``python -m mchap_tpu_torch.bench_w``; NVIDIA
+# H100 80GB HBM3, 700 W)
+W_STEPS = ["--mcmc-chains", "6", "--mcmc-steps", "200", "--mcmc-burn", "100"]
 
 
 @contextlib.contextmanager
@@ -1660,7 +1682,7 @@ def _denovo_sampler_calls():
         M.denovo_sampler = real
 
 
-def _time_torch_sampler(args, kw, cuda_graph, steps=(10, 40)):
+def _time_torch_sampler(args, kw, cuda_graph, steps):
     """ms per step of the torch de novo sampler on ``args``, eager or
     through its CUDA graph: the difference of two runs of ``steps``
     steps, so that set-up and capture drop out; and the longer run's
@@ -1793,13 +1815,15 @@ def phase_w_block(device, ploidy=16, n_reads=1024, n_problems=440, steps=3):
         _fail("phase W (block)")
 
 
-def phase_w_exact(device, chains=256, steps=300, burn=60):
+def phase_w_exact(device, chains=512, steps=180, burn=60):
     """The torch de novo sampler on the card against exact enumeration
     over the full haplotype space, on the CPU tests' cases
     (tests/test_torch_assemble_mcmc.py): ploidy 14 over 2 biallelic SNVs,
     9 rungs, F = 0 and F = 0.2 in one block, two intervals.  CUDA's
     Philox stream is not the CPU's, so this is the sampler's check on
-    the card.  Bound: 0.05 per genotype."""
+    the card.  Bound: 0.05 per genotype.  512 chains x 120 kept steps
+    (was 256 x 240): as many samples, in fewer steps, since a step costs
+    about the same for any chain count."""
     import numpy as np
     import torch
 
@@ -1865,8 +1889,10 @@ def phase_w_assemble(device, data):
     """``mchap assemble --use-dirmul-prior FILE`` end to end on phase C's
     reads, the first sample at F = 0 and the others at 0.1 (breeders
     write such a file when one parent is outbred): every block takes the
-    torch de novo sampler.  Then the sampler's ms per step at the largest
-    call's shape, eager and through its CUDA graph, with the same draws."""
+    torch de novo sampler, in two calls: the 15 biallelic loci's block and
+    the 5 triallelic loci's (A = 3).  Then the sampler's ms per step at the
+    larger call's shape, eager and through its CUDA graph, with the same
+    draws."""
     import torch
 
     from test_torch_fixtures import parse_vcf_records
@@ -1890,12 +1916,14 @@ def phase_w_assemble(device, data):
     frac = agree / max(total, 1)
     k1 = launches["denovo_sampler"]
     routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
-    steps = int(W_STEPS[1])
+    steps = int(W_STEPS[W_STEPS.index("--mcmc-steps") + 1])
+    alleles = sorted(args[2].shape[-1] for args, _ in calls)
     sampler_s = timers.stages.get("device.torch_sampler", float("nan"))
     print(
         f"phase W: assemble --use-dirmul-prior (F = 0 for {data['samples'][0]}, 0.1"
         f" for the rest) {' '.join(W_STEPS)} exit {rc}, {len(records)} records, K1"
-        f" launches {k1}, de novo routes {routes}, sampler calls {len(calls)}, GT =="
+        f" launches {k1}, de novo routes {routes}, sampler calls {len(calls)} at A ="
+        f" {alleles}, GT =="
         f" truth {agree}/{total} = {frac:.4f} (bound 0.90); wall {wall:.2f} s ="
         f" {n_loci / wall:.3f} loci/s; torch sampler {sampler_s:.2f} s ="
         f" {1e3 * sampler_s / steps:.2f} ms per step over its {len(calls)} calls",
@@ -1904,16 +1932,19 @@ def phase_w_assemble(device, data):
     for line in timers.summary_lines():
         print("phase W timing:", line, flush=True)
     if (rc != 0 or len(records) != n_loci or k1 != 0 or routes != ["torch"]
-            or total != 440 or frac < 0.90):
+            or alleles != [2, 3] or total != 440 or frac < 0.90):
         _fail("phase W (assemble)")
 
     args, kw = max(calls, key=lambda c: c[0][1].numel())
     S, C, P, NB = args[1].shape
     shape = dict(S=S, chains=C, P=P, NB=NB, R=args[2].shape[1], A=args[2].shape[-1],
                  rungs=len(args[6]), prior=kw.get("inbreeding") is not None)
-    eager_ms, eager = _time_torch_sampler(args, kw, cuda_graph=False)
-    graph_ms, graph = _time_torch_sampler(args, kw, cuda_graph=True)
-    same = all(torch.equal(a, b) for a, b in zip(eager, graph))
+    # eager steps take about 0.45 s each, graphed ones about 0.08 s; a
+    # step's draws do not depend on the run's length, so the eager trace
+    # must equal the graphed one's first steps
+    eager_ms, eager = _time_torch_sampler(args, kw, cuda_graph=False, steps=(2, 6))
+    graph_ms, graph = _time_torch_sampler(args, kw, cuda_graph=True, steps=(3, 23))
+    same = all(torch.equal(a, b[:, :, :a.shape[2]]) for a, b in zip(eager, graph))
     print(f"phase W sampler at the largest call's shape {json.dumps(shape)}: eager"
           f" {eager_ms:.2f} ms per step, CUDA graph {graph_ms:.2f} ms per step;"
           f" traces identical {same}", flush=True)
@@ -2025,6 +2056,226 @@ def phase_y(device, data):
         _fail("phase Y (atomize)")
 
 
+# phase Z: the problems of a block over a list of devices; one card named
+# three times splits each block three ways (440 problems: 147 + 147 + 146)
+Z_SHARDS = 3
+
+# one rank of phase Z's two-process `mchap call`: records each K2 launch's
+# shape and chain offset, runs the CLI on argv[2:], and writes its wall and
+# shapes to argv[1] + "<rank>.json" (the VCF goes to standard output)
+_Z_RANK = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from mchap_tpu_torch.ops import cuda_calling as KC
+shapes, real = [], KC._launch
+def spy(rh, counts, n_valid, problem, **kw):
+    shapes.append(dict(device=str(rh.device), S=rh.shape[0], R=rh.shape[1], H=rh.shape[2],
+                       chains=problem.numel(), chain_offset=kw["chain_offset"]))
+    return real(rh, counts, n_valid, problem, **kw)
+KC._launch = spy
+from mchap_tpu_torch.application.cli import main
+from mchap_tpu_torch.parallel.distributed import world
+rc = main(["mchap", *sys.argv[2:]])
+rank = world()[0]
+json.dump(dict(rc=rc, wall=time.perf_counter() - t0, rank=rank, shapes=shapes,
+               launches=KC.calling_sampler.launches), open(f"{sys.argv[1]}{rank}.json", "w"))
+"""
+
+
+@contextlib.contextmanager
+def _sharded_launches(module, name):
+    """Record (device, problems, chain offset) of every call of kernel
+    wrapper ``name`` made through ``module``."""
+    seen, real = [], getattr(module, name)
+
+    def spy(*args, **kw):
+        seen.append((str(args[0].device), int(args[0].shape[0]), kw.get("chain_offset", 0)))
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def _same_traces(a, b):
+    """Largest |llk| difference of two runs' traces, or inf where their
+    genotypes (tabulated: distinct states and counts) differ."""
+    import numpy as np
+
+    err = 0.0
+    for x, y in zip(a, b, strict=True):
+        if hasattr(x, "states"):
+            for c in range(len(x.counts)):
+                mx, my = x.counts[c] > 0, y.counts[c] > 0
+                if not (np.array_equal(x.states[c][mx], y.states[c][my])
+                        and np.array_equal(x.counts[c][mx], y.counts[c][my])):
+                    return float("inf")
+                err = max(err, float(np.abs(x.llks[c][mx] - y.llks[c][my]).max(initial=0)))
+        else:
+            if not np.array_equal(x.genotypes, y.genotypes):
+                return float("inf")
+            err = max(err, float(np.abs(np.nan_to_num(x.llks) - np.nan_to_num(y.llks))
+                                 .max(initial=0)))
+    return err
+
+
+def _z_compare(label, run, module, attr, name, device):
+    """``run(devices)`` on one card unsharded and split Z_SHARDS ways, each
+    with the launch counts at 0 just before; returns the largest llk
+    difference and prints kernel ``name``'s launches per device, recorded
+    by a spy on ``module.attr`` (a name the model calls it by, or the
+    wrapper's own ``_launch``: the wrapper counts through its module's
+    global name, which a spy must not replace)."""
+    out, launches = {}, {}
+    for n in (1, Z_SHARDS):
+        _reset_launches()
+        with _sharded_launches(module, attr) as seen:
+            t = time.perf_counter()
+            out[n] = run([device] * n)
+            wall = time.perf_counter() - t
+        launches[n] = _launches()[name]
+        print(f"phase Z ({label}, {n} shard{'s' * (n > 1)}): launches {launches[n]},"
+              f" (device, problems, chain offset) {seen}; {wall:.2f} s", flush=True)
+        if launches[n] != n or len(seen) != n:
+            _fail(f"phase Z ({label}): {launches[n]} launches for {n} shards")
+    err = _same_traces(out[Z_SHARDS], out[1])
+    print(f"phase Z ({label}): {Z_SHARDS} shards vs 1, genotypes identical"
+          f" {err != float('inf')}, max |llk difference| {err:.3g} (bound 0)", flush=True)
+    if err != 0.0:
+        _fail(f"phase Z ({label})")
+    return err
+
+
+def phase_z(device, data, S=LATENCY["S"], K1_STEPS=LATENCY["steps"], K2_STEPS=2000,
+            LOCI=128, K3_STEPS=500):
+    """A block's problems over a list of devices (``parallel/``): one card
+    named three times, so each block splits three ways, against the
+    unsharded launch -- K1 at phase S's shape (flat, then phase N's T = 3
+    with alpha 0.05), tabulation on; K2 at ``LATENCY_K2`` over 2000 steps;
+    K3 through the pedigree model at phase M's 128 loci x 1 chain, 500
+    steps.  Genotypes and llks must be identical (each kernel keys its
+    draws by global chain).  Then ``mchap call`` as phase G in two
+    processes on the card (gloo): rank 0's records must be phase G's
+    byte for byte, rank 1 writes none.  Then the INFO pools on the card
+    against the host formulas."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.models import assemble as MA
+    from mchap_tpu_torch.models import calling as MC
+    from mchap_tpu_torch.models import pedigree as MP
+    from mchap_tpu_torch.parallel import launch, pools
+    from mchap_tpu_torch.testing import simulate_reads
+
+    cpu = torch.device("cpu")
+    errs = {}
+    # K1: phase S's inputs in the model's layout
+    lr, counts, g0, nall, _, _ = (
+        x.numpy() for x in _latency_inputs(np.random.default_rng(26), cpu, S=S))
+    S, NB, A, R = lr.shape
+    P, chains = LATENCY["P"], LATENCY["chains"]
+    log_reads = np.ascontiguousarray(lr.transpose(0, 3, 1, 2))
+    init = g0.reshape(P, NB, S, chains).transpose(2, 3, 0, 1)
+    break_dist = np.zeros((S, NB))
+    break_dist[:, :2] = [0.25, 0.75]
+    for label, temps, alphas, key in (
+        ("K1 flat", (1.0,), None, "denovo_sampler"),
+        ("K1 T=3 alpha 0.05", (0.33, 0.66, 1.0), np.full(S, 0.05),
+         "denovo_sampler (ladder and prior)"),
+    ):
+        errs[key] = _z_compare(label, lambda devices: MA._fit_denovo_batch_kernel(
+            log_reads, counts, init, nall, break_dist, P, K1_STEPS, chains, 11,
+            0.5, 0.5, 1.0, device, burn=K1_STEPS // 2, tabulate=True, temperatures=temps,
+            alphas=alphas, devices=devices), MA, "denovo_sampler", "denovo_sampler", device)
+
+    # K2 at phase G's launch shape
+    shape = LATENCY_K2
+    rh, counts2, n_valid, _ = (x.numpy() for x in _calling_inputs(
+        np.random.default_rng(27), S, shape["P"], shape["H"], shape["R"],
+        S * shape["chains"], cpu, n_valid=[6], adjacent=True))
+    errs["calling_sampler"] = _z_compare("K2", lambda devices: MC._fit_batch_kernel(
+        rh, counts2, shape["P"], K2_STEPS, shape["chains"], 13, n_valid, K2_STEPS // 2,
+        device=device, devices=devices), MC, "calling_sampler", "calling_sampler", device)
+
+    # K3 through the pedigree model at phase M's shape
+    rng = np.random.default_rng(28)
+    parents = np.asarray(BIPARENTAL)
+    n_samples = len(parents)
+    problems = []
+    for _ in range(LOCI):
+        panel = rng.integers(0, 2, size=(16, 16))
+        geno, reads = [], []
+        for i, (a, b) in enumerate(parents):
+            geno.append(rng.integers(0, 16, 4) if a < 0 else np.concatenate(
+                [rng.choice(geno[a], 2, replace=False), rng.choice(geno[b], 2, replace=False)]))
+            reads.append(simulate_reads(panel[geno[i]], n_alleles=2, n_reads=64, errors=True,
+                                        error_rate=0.0024, seed=int(rng.integers(1 << 30))))
+        problems.append(dict(sample_reads=np.stack(reads),
+                             sample_read_counts=np.ones((n_samples, 64), int),
+                             haplotypes=panel.astype(np.int8)))
+    design = (np.full(n_samples, 4), parents, np.full((n_samples, 2), 2),
+              np.zeros((n_samples, 2)), np.full((n_samples, 2), 0.1))
+
+    def k3(devices):  # K3 records no llks: the genotypes are compared
+        trace, _ = MP._fit(problems, *design, K3_STEPS, 1, 7, "Gibbs", True, 0, device,
+                           devices=devices)
+        return [types.SimpleNamespace(genotypes=t, llks=np.zeros(1)) for t in trace]
+
+    errs["pedigree_sampler"] = _z_compare("K3", k3, MP._k3, "_launch", "pedigree_sampler",
+                                          device)
+
+    # `mchap call` in two processes on the one card
+    argv = ["call", "--bam", *data["bams"], "--ploidy", "4", "--haplotypes",
+            str(data["assembled"]), "--reference", data["reference"], "--device", device.type]
+    prefix = WORK / "assemble" / "call_rank"
+    outs = [f"{prefix}{r}.vcf" for r in range(2)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MCHAP_EMIT_ALL_HOSTS", "MCHAP_TIMING")}
+    t = time.perf_counter()
+    codes = launch.launch(["-c", _Z_RANK, str(prefix), *argv], 2, stdout=outs, timeout=600,
+                          env=env)
+    wall = time.perf_counter() - t
+    info = [] if any(codes) else [json.loads(pathlib.Path(f"{prefix}{r}.json").read_text())
+                                  for r in range(2)]
+
+    def records(text):
+        return [line for line in text.splitlines()
+                if not line.startswith(("##fileDate", "##commandline"))]
+
+    rank0 = records(pathlib.Path(outs[0]).read_text())
+    same = rank0 == records((WORK / "assemble" / "call.vcf").read_text())
+    rank1 = pathlib.Path(outs[1]).read_text()
+    for i in info:
+        print(f"phase Z (call, rank {i['rank']} of 2): exit {i['rc']}, wall {i['wall']:.2f} s,"
+              f" K2 launches {i['launches']}: {json.dumps(i['shapes'])}", flush=True)
+    print(f"phase Z (call, 2 ranks on one card, gloo): exit codes {codes}, {wall:.2f} s;"
+          f" rank 0 {sum(not x.startswith('#') for x in rank0)} records, identical to"
+          f" phase G's {same}; rank 1 wrote {len(rank1)} bytes", flush=True)
+    if any(codes) or not same or rank1 or [i["rank"] for i in info] != [0, 1]:
+        _fail("phase Z (two-rank call)")
+
+    # INFO pools on the card
+    rng = np.random.default_rng(0)
+    n_problems, n_loci, k = 440, 20, 6
+    locus_ids = np.repeat(np.arange(n_loci), 22)
+    acp, aop = rng.uniform(0, 4, (n_problems, k)), rng.uniform(0, 1, (n_problems, k))
+    snvdp = rng.integers(0, 50, (n_problems, k)).astype(float)
+    got = [x.cpu().numpy() for x in pools.pooled_info(
+        [device] * Z_SHARDS, n_loci, locus_ids, acp, aop, snvdp)]
+    sel = locus_ids[None, :] == np.arange(n_loci)[:, None]
+    want = [np.stack([f(m) for m in sel]) for f in (
+        lambda m: acp[m].sum(0), lambda m: aop[m].sum(0),
+        lambda m: 1 - np.prod(1 - aop[m], axis=0), lambda m: snvdp[m].sum(0))]
+    pool_err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    print(f"phase Z (pools, {n_problems} problems over {Z_SHARDS} shards): max |card -"
+          f" host| {pool_err:.3g} (bound 1e-12)", flush=True)
+    if not pool_err <= 1e-12:
+        _fail("phase Z (pools)")
+    return dict(errs=errs, call_wall=wall, call_rank_walls=[i["wall"] for i in info])
+
+
 def _card():
     """Name and power limit line, SM count and special-function rate."""
     import torch
@@ -2119,6 +2370,7 @@ def main():
                        phase_w_assemble(device, results["C"][1]))[-1]),
         ("X", lambda: phase_x(device, results["C"][1])),
         ("Y", lambda: phase_y(device, results["C"][1])),
+        ("Z", lambda: phase_z(device, results["C"][1])),
     ]
     for name, run in runners:
         t = time.perf_counter()
@@ -2158,6 +2410,11 @@ def main():
              launches=results["L"]["pedigree_sampler"], max_abs_err=results["J"],
              **results["M"]),
     ]
+    z = results["Z"]["errs"]
+    for k in kernels:
+        if k["name"] in z:  # K0 runs on no sharded path
+            k["sharded_max_abs_err"] = z[k["name"]]
+            k["shard_counts"] = [1, Z_SHARDS]
     for k in kernels:
         k["route"] = "cuda"
         k["library_ms"] = None  # no single PyTorch call computes a sampler step

@@ -34,6 +34,7 @@ from mchap_tpu_torch.io.bam import (
 from mchap_tpu_torch.io.bamlite import AlignmentFile
 from mchap_tpu_torch.io.loci import Locus
 from mchap_tpu_torch.io.vcflite import VariantFile
+from mchap_tpu_torch.parallel.distributed import is_output_process
 
 warnings.simplefilter("error", RuntimeWarning)
 
@@ -364,7 +365,10 @@ class program:
                 "--cores is ignored: cross-locus device batching "
                 "supersedes process parallelism (see --locus-batch)."
             )
-        emit = sys.stdout.write
+        # in a process group every rank computes the whole result
+        # (parallel/sharding.gather_result), so only one writes it
+        output = is_output_process()
+        emit = sys.stdout.write if output else (lambda line: None)
         block = self._locus_batch_size()
         for line in self.header():
             emit(line + "\n")
@@ -382,7 +386,8 @@ class program:
             if pending:
                 for line in self._call_locus_block(pending):
                     emit(line + "\n")
-        timing.emit_summary()
+        if output:
+            timing.emit_summary()
 
 
 def _unique_read_dists(read_dists):

@@ -4,7 +4,7 @@ Reference: mchap/application/call_exact.py; port of
 ``mchap_tpu/application/call_exact.py``.  Fully deterministic, so its
 output is byte-comparable to ``mchap_tpu``'s.  Each locus's route is
 chosen before any device work: the block path (every sample of every
-block locus through ``exact.exact_posterior_stats_multi``) or the
+block locus through ``exact_stats_sharded``) or the
 per-locus path (panels above ``MAX_BLOCK_PANEL``, dense GL/GP fields).
 A failed block launch fails the run: nothing is retried per locus.
 """
@@ -35,6 +35,7 @@ from mchap_tpu_torch.io.util import qual_of_prob
 from mchap_tpu_torch.numerics.combinadics import index_as_genotype_alleles_np
 from mchap_tpu_torch.numerics.logprob import natural_log_to_log10
 from mchap_tpu_torch.ops import exact
+from mchap_tpu_torch.parallel.sharding import run_sharded
 from mchap_tpu_torch.utils import fallback, timing
 from mchap_tpu_torch.utils.device import resolve_device
 
@@ -42,6 +43,20 @@ from mchap_tpu_torch.utils.device import resolve_device
 # padded VCF genotype table would grow past C(32+3, 4) rows per problem
 MAX_BLOCK_PANEL = 32
 
+
+
+def exact_stats_sharded(problems, ploidy, device, devices="auto"):
+    """``exact.exact_posterior_stats_multi`` with the block's problems
+    spread over ``devices`` (``parallel.sharding.run_sharded``), each
+    shard split again where one launch would not fit its device.
+    Enumeration draws nothing, so placement changes no result."""
+    arrays, use_prior = exact.exact_block_arrays(problems)
+    return run_sharded(
+        len(problems), arrays,
+        lambda sh: exact.exact_block_launch(*sh.arrays, ploidy=ploidy, use_prior=use_prior),
+        lambda sh, stats: exact.exact_block_results(stats, sh.arrays[2]),
+        devices=devices, device=device,
+    )
 
 @dataclass
 class program(call_baseclass.program):
@@ -213,8 +228,8 @@ class program(call_baseclass.program):
         )
 
     def _call_locus_block(self, loci):
-        """Exact-call a block of loci with one ``exact_posterior_stats_multi``
-        call per ploidy.
+        """Exact-call a block of loci with one ``exact_stats_sharded`` call
+        per ploidy.
 
         Cross-locus batching for the deterministic exact caller: each
         problem's result is its own exact posterior (panel padding
@@ -271,7 +286,7 @@ class program(call_baseclass.program):
         stats = {}
         with timing.stage("device_sampler"):
             for ploidy, items in groups.items():
-                results = exact.exact_posterior_stats_multi(
+                results = exact_stats_sharded(
                     [p for _, _, p in items], ploidy, device=self.device
                 )
                 fallback.note_path("call-exact", "block")

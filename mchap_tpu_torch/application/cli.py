@@ -5,12 +5,17 @@ Reference: mchap/application/cli.py.
 
 import sys
 
+from mchap_tpu_torch.parallel.distributed import maybe_initialize
+
 TOOLS = ["assemble", "call", "call-exact", "call-pedigree", "find-snvs", "atomize"]
 
 
 def main(command=None):
     if command is None:
         command = sys.argv
+    # join a multi-process run before any device work (no-op unless
+    # MCHAP_DISTRIBUTED is set; parallel/distributed.py)
+    maybe_initialize()
     usage = "usage: mchap [-h] {" + ",".join(TOOLS) + "} ..."
     if len(command) < 2 or command[1] in {"-h", "--help"}:
         print(usage)

@@ -54,8 +54,21 @@
 // chosen allele's e is cached (one __syncwarp per slot).  A prologue
 // kernel computes the per-problem anchors m and exponentials e once per
 // launch into scratch the wrapper allocates.  Draws: Philox4x32-10 with
-// key (seed, chain) and counter (step, slot, h / 4, seed >> 32), word
-// h % 4, or a pinned noise[T][P][H][C].
+// key (seed, chain_offset + chain) and counter (step, slot, h / 4,
+// seed >> 32), word h % 4, or a pinned noise[T][P][H][C]; chain_offset
+// is the launch's first chain in the whole block, so a block split over
+// devices or processes draws what one launch of the whole block draws.
+//
+// The kernel's c is that index in the whole block, c in [chain_offset,
+// chain_offset + C), so that the key takes no extra live register (adding
+// the offset at each Philox call cost 1.5-3% per step in spills).  The
+// per-chain arrays (problem, noise, alleles, llks) are therefore passed as
+// integer addresses moved back by chain_offset elements (Params::*_at),
+// and an element's address is formed as an integer, base + index *
+// size, before it becomes a pointer (at<T>): every pointer the kernel
+// forms lies inside its array, since index - chain_offset is the chain's
+// index in the launch.  Invariant: chain_offset + C <= 2^31 - 1 (c is an
+// int; the wrapper refuses more).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,13 +90,23 @@ struct Params {
   const float* mlp;      // [S][R]     m - log P
   const float* counts;   // [S][R]
   const int* n_valid;    // [S]
-  const int* problem;    // [C]
-  const float* noise;    // [n_steps][P][H][C] or null
-  void* alleles;         // [n_steps][P][C], out_bytes each
-  float* llks;           // [n_steps][C]
+  // per-chain arrays: integer addresses of element -chain_offset
+  uintptr_t problem_at;  // int [C]
+  uintptr_t noise_at;    // float [n_steps][P][H][C], or 0: Philox draws
+  uintptr_t alleles_at;  // [n_steps][P][C], out_bytes each
+  uintptr_t llks_at;     // float [n_steps][C]
   int S, R, H, C, n_steps, out_bytes, warps;
   uint64_t seed;
+  uint32_t chain_offset;  // index of this launch's chain 0 in the whole block
 };
+
+// Element i of a per-chain array whose integer address ``base`` is that
+// of element -chain_offset: the address is summed as an integer, and only
+// the result, inside the array, becomes a pointer.
+template <typename T>
+__device__ __forceinline__ T* at(uintptr_t base, size_t i) {
+  return reinterpret_cast<T*>(base + i * sizeof(T));
+}
 
 __device__ __forceinline__ void philox4(uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3,
                                         uint32_t k0, uint32_t k1, uint32_t out[4]) {
@@ -103,11 +126,13 @@ template <int P>
 __device__ __forceinline__ void gumbel4(const Params& p, int c, int step, int k, int q,
                                         float g[4]) {
   float u[4];
-  if (p.noise) {
+  if (p.noise_at) {
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       const int h = 4 * q + w;
-      u[w] = h < p.H ? __ldg(p.noise + (((size_t)step * P + k) * p.H + h) * p.C + c) : 0.5f;
+      u[w] = h < p.H ? __ldg(at<const float>(p.noise_at,
+                                               (((size_t)step * P + k) * p.H + h) * p.C + c))
+                     : 0.5f;
     }
   } else {
     uint32_t bits[4];
@@ -199,14 +224,14 @@ template <int P>
 __global__ void __launch_bounds__(128) calling_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * p.warps + warp;
-  if (c >= p.C) return;  // whole warp leaves; there are no block barriers
+  const int c = (int)p.chain_offset + blockIdx.x * p.warps + warp;
+  if (c >= (int)p.chain_offset + p.C) return;  // whole warp leaves; there are no block barriers
 
   const int R = p.R, H = p.H;
   float2* cm = reinterpret_cast<float2*>(smem_raw) + (size_t)warp * warp_floats(P, R) / 2;
   float* es = reinterpret_cast<float*>(cm + R);  // [P][R] e of each slot's allele
   float* srest = es + P * R;                     // [R] S_rest of the current slot
-  const int s = p.problem[c];
+  const int s = *at<const int>(p.problem_at, c);
   const float* e = p.e + (size_t)s * R * H;
   const int nv = p.n_valid[s];
   // lane (j, hh): candidate hh of each pass, reads r = j (mod G)
@@ -335,11 +360,11 @@ __global__ void __launch_bounds__(128) calling_kernel(Params p) {
     for (int k = 0; k < P; ++k) {
       if (lane == k) {
         const size_t o = ((size_t)step * P + k) * p.C + c;
-        if (p.out_bytes == 1) static_cast<int8_t*>(p.alleles)[o] = (int8_t)sorted[k];
-        else static_cast<int16_t*>(p.alleles)[o] = (int16_t)sorted[k];
+        if (p.out_bytes == 1) *at<int8_t>(p.alleles_at, o) = (int8_t)sorted[k];
+        else *at<int16_t>(p.alleles_at, o) = (int16_t)sorted[k];
       }
     }
-    if (lane == 0) p.llks[(size_t)step * p.C + c] = llk;
+    if (lane == 0) *at<float>(p.llks_at, (size_t)step * p.C + c) = llk;
     PROF(MARK(6) PROF_ADD(7, clock64() - t_step))
   }
   PROF(if (lane == 0) for (int i = 0; i < K2P_N; ++i) atomicAdd(&g_prof[i], prof_s[warp][i]);)
@@ -372,8 +397,10 @@ int calling_sampler_launch(const void* rh, const void* counts, const void* n_val
                            const void* problem, const void* noise, void* e_scratch,
                            void* mlp_scratch, void* alleles, void* llks, int S, int R,
                            int H, int P, int C, int n_steps, float log_p, int out_bytes,
-                           uint64_t seed, int warps, void* stream) {
+                           uint64_t seed, uint32_t chain_offset, int warps,
+                           void* stream) {
   if (C == 0 || n_steps == 0) return cudaSuccess;
+  if ((uint64_t)chain_offset + (uint64_t)C > 0x7fffffffu) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = S * R;
   anchor_kernel<<<(n + 255) / 256, 256, 0, st>>>(
@@ -382,16 +409,20 @@ int calling_sampler_launch(const void* rh, const void* counts, const void* n_val
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   Params p;
+  // per-chain arrays: the integer address of element -chain_offset (see
+  // the note at the top; unsigned arithmetic, so no pointer leaves its array)
+  const uintptr_t back = (uintptr_t)chain_offset;
   p.e = static_cast<const float*>(e_scratch);
   p.mlp = static_cast<const float*>(mlp_scratch);
   p.counts = static_cast<const float*>(counts);
   p.n_valid = static_cast<const int*>(n_valid);
-  p.problem = static_cast<const int*>(problem);
-  p.noise = static_cast<const float*>(noise);
-  p.alleles = alleles;
-  p.llks = static_cast<float*>(llks);
+  p.problem_at = reinterpret_cast<uintptr_t>(problem) - back * sizeof(int);
+  p.noise_at = noise ? reinterpret_cast<uintptr_t>(noise) - back * sizeof(float) : 0;
+  p.alleles_at = reinterpret_cast<uintptr_t>(alleles) - back * out_bytes;
+  p.llks_at = reinterpret_cast<uintptr_t>(llks) - back * sizeof(float);
   p.S = S; p.R = R; p.H = H; p.C = C; p.n_steps = n_steps;
   p.out_bytes = out_bytes; p.warps = warps; p.seed = seed;
+  p.chain_offset = chain_offset;
   switch (P) {
     case 1: return launch_p<1>(p, st);
     case 2: return launch_p<2>(p, st);

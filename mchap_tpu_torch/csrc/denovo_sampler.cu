@@ -63,8 +63,10 @@
 // wrapper allocates (denovo_sampler_state_layout gives the bytes and the
 // place, and the launch uses the same function), so any read depth the
 // card's memory holds runs.  Uniform draws come from Philox4x32-10, key
-// (seed, chain), counter (step, draw index), or from a pinned
-// noise[n_steps][D][C] tensor in tests.
+// (seed, chain_offset + chain), counter (step, draw index), or from a
+// pinned noise[n_steps][D][C] tensor in tests.  chain_offset is the
+// launch's first chain in the whole block, so a block split over devices
+// or processes draws what one launch of the whole block draws.
 //
 // Tempering (the JAX kernel's n_temps > 1): a chain's T rungs are T
 // consecutive warps of one block, rung t drawing from indices t * Dr ..
@@ -127,6 +129,7 @@ struct Params {
   float p_recomb, p_partial, p_full;
   int refresh, stage, out_bytes;
   uint64_t seed;
+  uint32_t chain_offset;  // global index of chain 0 (the Philox key)
   int warps;             // rung-warps per block: whole chains of T warps
   int T;                 // rungs per chain
   float temps[kMaxTemps];  // ascending inverse temperatures, temps[T-1] = 1
@@ -235,7 +238,7 @@ struct Chain {
     uint32_t seed_lo = (uint32_t)p->seed;
     uint32_t seed_hi = (uint32_t)(p->seed >> 32);
     uint32_t bits = philox_word((uint32_t)step, (uint32_t)(idx >> 2), seed_hi,
-                                seed_lo, (uint32_t)c, idx & 3);
+                                seed_lo, p->chain_offset + (uint32_t)c, idx & 3);
     return fmaxf((float)(bits >> 9) * (1.0f / 8388608.0f), 1e-12f);
   }
   // draw `d` of this rung's step
@@ -1144,7 +1147,8 @@ int denovo_sampler_launch(const void* lr, const void* counts, const void* nall,
                           void* scratch, int S, int R, int NB, int A, int P, int C,
                           int n_steps, int T, const float* temps, float p_recomb,
                           float p_partial, float p_full, int refresh, int stage,
-                          int out_bytes, uint64_t seed, int warps, void* stream) {
+                          int out_bytes, uint64_t seed, uint32_t chain_offset, int warps,
+                          void* stream) {
   if (T < 1 || T > kMaxTemps || warps % T != 0 || (T > 1 && warps / T > 15) || P < 1 ||
       P > kMaxPloidy)
     return cudaErrorInvalidValue;
@@ -1164,6 +1168,7 @@ int denovo_sampler_launch(const void* lr, const void* counts, const void* nall,
   p.p_recomb = p_recomb; p.p_partial = p_partial; p.p_full = p_full;
   p.refresh = refresh; p.stage = stage; p.out_bytes = out_bytes;
   p.seed = seed;
+  p.chain_offset = chain_offset;
   p.warps = warps;
   p.T = T;
   for (int t = 0; t < T; ++t) p.temps[t] = temps[t];

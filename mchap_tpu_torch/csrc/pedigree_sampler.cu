@@ -64,8 +64,11 @@
 //   addresses;
 // - a pair swap spreads its reads and blanket over the block and sums the
 //   parts in a fixed order.
-// Uniforms come from Philox4x32-10 with key (seed, chain) and counter
-// (step, draw / 4, 0, seed >> 32), or from a pinned noise[T][D][C] where
+// Uniforms come from Philox4x32-10 with key (seed, chain_offset + chain)
+// and counter (step, draw / 4, 0, seed >> 32), where chain_offset is the
+// launch's first chain in the whole block (so a block split over devices
+// or processes draws what one launch draws), or from a pinned
+// noise[T][D][C] where
 // draw d = (s * maxp + k) * H + h for slots and S * maxp * H + 3 * pair +
 // {0, 1, 2} for a pair's p slot, q slot and acceptance.
 
@@ -117,6 +120,7 @@ struct Params {
   int16_t* trace;  // [C][n_steps][S][maxp]
   int N, S, R, H, C, maxp, n_pairs, n_waves, n_steps, D, rmax;
   uint64_t seed;
+  uint32_t chain_offset;  // global index of chain 0 (the Philox key)
 };
 
 // The block's shared memory.
@@ -164,7 +168,7 @@ __device__ __forceinline__ float uniform(const Params& p, int c, int step, int d
   if (p.noise) return __ldg(p.noise + ((size_t)step * p.D + d) * p.C + c);
   const uint32_t bits = philox_word((uint32_t)step, (uint32_t)(d >> 2), 0u,
                                     (uint32_t)(p.seed >> 32), (uint32_t)p.seed,
-                                    (uint32_t)c, d & 3);
+                                    p.chain_offset + (uint32_t)c, d & 3);
   return fmaxf((float)(bits >> 9) * (1.0f / 8388608.0f), 1e-12f);
 }
 
@@ -572,8 +576,8 @@ int pedigree_sampler_launch(const void* rh, const void* counts, const void* freq
                             int o_child_ptr, int o_child_idx, int o_pairs,
                             int o_blanket_ptr, int o_blanket_idx, int o_wave_ptr,
                             void* trace, int N, int S, int R, int H, int C, int maxp,
-                            int n_pairs, int n_waves, int n_steps, uint64_t seed, int warps,
-                            void* stream) {
+                            int n_pairs, int n_waves, int n_steps, uint64_t seed,
+                            uint32_t chain_offset, int warps, void* stream) {
   if (C == 0 || n_steps == 0) return cudaSuccess;
   if (maxp < 1 || maxp > kMaxP || warps < 1 || warps > max_warps(maxp))
     return cudaErrorInvalidValue;
@@ -603,6 +607,7 @@ int pedigree_sampler_launch(const void* rh, const void* counts, const void* freq
   p.D = S * maxp * H + 3 * n_pairs;
   p.rmax = R < kTile ? R : kTile;
   p.seed = seed;
+  p.chain_offset = chain_offset;
   const size_t smem = (size_t)pedigree_sampler_smem_bytes(S, maxp, R, warps);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (maxp <= 2) return launch<2>(p, warps, smem, st);

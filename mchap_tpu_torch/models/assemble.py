@@ -41,9 +41,11 @@ from mchap_tpu_torch.ops.trace_tab import (
     decode_tabulated_states,
     tabulate_packed_trace,
 )
+from mchap_tpu_torch.parallel.sharding import run_sharded
 from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.device import resolve_device
+from mchap_tpu_torch.utils.seeds import shard_seed
 
 
 def _point_beta_probabilities(n_base, a=1, b=1):
@@ -209,18 +211,24 @@ def _fit_denovo_batch_kernel(
     log_reads, counts, init, n_alleles_eff, break_dist, ploidy, steps,
     chains, seed, p_recomb, p_partial, p_full, device, burn=0,
     tabulate=False, pinned_noise=None, temperatures=(1.0,), alphas=None,
+    devices="auto",
 ):
-    """Run all samples x chains through one K1 launch.
+    """Run all samples x chains through K1, one launch per shard.
 
     log_reads f32[S, R, NB, A], counts [S, R], init i32[S, chains, P,
     NB], n_alleles_eff [S, NB] (1 = fixed), break_dist [S, NB],
     ``temperatures`` the ascending ladder, ``alphas`` [S] the
     Dirichlet-multinomial dispersions (None: flat prior).  Chain
     ``i * chains + c`` is chain c of problem i; the reads stay per
-    problem.  With ``tabulate`` the kept trace is tabulated where it
-    lies and only distinct states cross to the host.  ``pinned_noise``
-    (a float) replaces every uniform draw of the sampler (tests).
-    Returns one trace per problem.
+    problem.  The problems are spread over ``devices``
+    (``parallel.sharding``) after the block's het compaction: every
+    shard launches at the block's NB, R, A and rungs, so each move has
+    the draw index it has in one launch of the block (``draw_layout``)
+    and, keyed by global chain, placement changes no result.  With
+    ``tabulate`` each shard's kept trace is tabulated on its device and
+    only distinct states cross to the host.  ``pinned_noise`` (a float)
+    replaces every uniform draw of the sampler (tests).  Returns one
+    trace per problem.
     """
     log_reads = np.asarray(log_reads, np.float32)
     init = np.asarray(init, np.int32)
@@ -237,32 +245,50 @@ def _fit_denovo_batch_kernel(
     )
     n_pos = log_reads.shape[2]
 
-    b = n_samples * chains
+    def _host(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype)
 
-    def _dev(x, dtype):
-        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype).to(device)
+    arrays = [
+        _host(log_reads.transpose(0, 2, 3, 1), torch.float32),  # [S, NB, A, R]
+        _host(counts, torch.float32),
+        _host(n_alleles_eff, torch.int32),
+        # per-problem Bernoulli breakpoint rate matching the reference's
+        # expected break count, spread over the (compacted) position axis
+        _host(mean_breaks / max(n_pos - 1, 1), torch.float32),
+        _host(init, torch.int32),  # [S, chains, P, NB]
+    ]
+    if alphas is not None:
+        arrays.append(_host(alphas, torch.float32))
+    D = draw_layout(ploidy, n_pos, len(temperatures))["D"]
 
-    lr_t = _dev(log_reads.transpose(0, 2, 3, 1), torch.float32)  # [S, NB, A, R]
-    counts_t = _dev(counts, torch.float32)
-    g0 = _dev(init.transpose(2, 3, 0, 1).reshape(ploidy, n_pos, b), torch.int32)
-    nall_t = _dev(n_alleles_eff, torch.int32)
-    # per-problem Bernoulli breakpoint rate matching the reference's
-    # expected break count, spread over the (compacted) position axis
-    pbreak = _dev(mean_breaks / max(n_pos - 1, 1), torch.float32)
-    problem = _dev(np.repeat(np.arange(n_samples), chains), torch.int32)
-    alpha_t = None if alphas is None else _dev(alphas, torch.float32)
-    noise = None
-    if pinned_noise is not None:
-        D = draw_layout(ploidy, n_pos, len(temperatures))["D"]
-        noise = torch.full((steps, D, b), float(pinned_noise), device=device)
-    with _timing.stage("device.kernel"):
-        packed, llks = denovo_sampler(
-            lr_t, counts_t, g0, nall_t, pbreak, problem, n_steps=steps,
-            p_recomb=p_recomb, p_partial=p_partial, p_full=p_full,
-            seed=seed, noise=noise, temps=temperatures, alpha=alpha_t,
+    def launch(sh):
+        lr_t, counts_t, nall_t, pbreak, g0 = sh.arrays[:5]
+        n = sh.stop - sh.start
+        g0 = g0.permute(2, 3, 0, 1).reshape(ploidy, n_pos, n * chains).contiguous()
+        problem = torch.arange(n, dtype=torch.int32, device=sh.device)
+        noise = None
+        if pinned_noise is not None:
+            noise = torch.full((steps, D, n * chains), float(pinned_noise), device=sh.device)
+        return denovo_sampler(
+            lr_t, counts_t, g0, nall_t, pbreak, problem.repeat_interleave(chains),
+            n_steps=steps, p_recomb=p_recomb, p_partial=p_partial, p_full=p_full,
+            seed=seed, noise=noise, temps=temperatures,
+            alpha=sh.arrays[5] if alphas is not None else None,
+            chain_offset=sh.start * chains,
         )
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+
+    def fetch(sh, run):
+        return _denovo_traces(*run, sh.start, sh.stop - sh.start, ploidy, n_pos, chains,
+                              steps, burn, tabulate, max_allele, restore, fix_llk)
+
+    return run_sharded(n_samples, arrays, launch, fetch, devices=devices, device=device,
+                       stage="device.kernel")
+
+
+def _denovo_traces(packed, llks, start, n, ploidy, n_pos, chains, steps, burn,
+                   tabulate, max_allele, restore, fix_llk):
+    """One shard's K1 output as traces of its problems start .. start + n
+    of the block (``restore`` and ``fix_llk`` index the block)."""
     kept = steps - burn
     base = next_pow2(max(max_allele, 2))
     if tabulate and kept > 0:
@@ -283,22 +309,22 @@ def _fit_denovo_batch_kernel(
                 llks_h = llks_t[:k].cpu().numpy()
             with _timing.stage("device.trace_unpack"):
                 alleles = decode_tabulated_states(words_h, ploidy, base)
-            st = alleles.reshape(k, ploidy, n_pos, n_samples, chains).transpose(
+            st = alleles.reshape(k, ploidy, n_pos, n, chains).transpose(
                 3, 4, 0, 1, 2
-            )  # [S, C, k, P, NB]
-            cnts = counts_h.reshape(k, n_samples, chains).transpose(1, 2, 0)
-            firsts = first_h.reshape(k, n_samples, chains).transpose(1, 2, 0)
-            llks_r = llks_h.reshape(k, n_samples, chains).transpose(1, 2, 0)
+            )  # [n, C, k, P, NB]
+            cnts = counts_h.reshape(k, n, chains).transpose(1, 2, 0)
+            firsts = first_h.reshape(k, n, chains).transpose(1, 2, 0)
+            llks_r = llks_h.reshape(k, n, chains).transpose(1, 2, 0)
             return [
                 TabulatedGenotypeTrace(
-                    restore(st[i], i),
-                    cnts[i],
-                    firsts[i],
-                    (llks_r[i] + fix_llk[i]).astype(float),
+                    restore(st[j], start + j),
+                    cnts[j],
+                    firsts[j],
+                    (llks_r[j] + fix_llk[start + j]).astype(float),
                     pre_burned=burn,
                     kept=kept,
                 )
-                for i in range(n_samples)
+                for j in range(n)
             ]
         # > n_cap distinct states in some chain: fetch the full kept trace
         _fallback.note_path("denovo-tabulate", "overflow-full-fetch")
@@ -308,13 +334,13 @@ def _fit_denovo_batch_kernel(
         llks = llks[burn:].cpu().numpy()
     with _timing.stage("device.trace_unpack"):
         genotypes = unpack_genotype_trace(packed_host, ploidy, max_allele)
-    genotypes = genotypes.reshape(kept, ploidy, n_pos, n_samples, chains)
-    genotypes = genotypes.transpose(3, 4, 0, 1, 2)  # [S, chains, kept, P, NB]
-    llks = llks.reshape(kept, n_samples, chains).transpose(1, 2, 0)
+    genotypes = genotypes.reshape(kept, ploidy, n_pos, n, chains)
+    genotypes = genotypes.transpose(3, 4, 0, 1, 2)  # [n, chains, kept, P, NB]
+    llks = llks.reshape(kept, n, chains).transpose(1, 2, 0)
     out = []
-    for i in range(n_samples):
+    for j in range(n):
         t = GenotypeMultiTrace(
-            restore(genotypes[i], i), (llks[i] + fix_llk[i]).astype(float)
+            restore(genotypes[j], start + j), (llks[j] + fix_llk[start + j]).astype(float)
         )
         t.pre_burned = burn
         out.append(t)
@@ -324,7 +350,7 @@ def _fit_denovo_batch_kernel(
 def _fit_denovo_batch_torch(
     reads, counts, init, n_alleles_eff, break_dist, ploidy, steps, chains,
     seed, p_recomb, p_partial, p_full, device, burn=0, temperatures=(1.0,),
-    inbreeding=None,
+    inbreeding=None, devices="auto",
 ):
     """Run all problems x chains x rungs through the torch de novo sampler
     (``ops/assemble_mcmc.denovo_sampler``) on ``device``.
@@ -334,8 +360,12 @@ def _fit_denovo_batch_torch(
     ``inbreeding`` [S] the prior's (None: no prior).  Het positions are
     compacted first (``_compact_het``); the break-count distribution is
     cut to the kept width, with the mass of larger counts on the largest.
-    The burn-in is dropped on the device.  Returns one untabulated trace
-    of the kept steps per problem.
+    The problems are spread over ``devices`` (``parallel.sharding``), each
+    shard drawing from its own generator seeded with ``shard_seed(seed,
+    first problem)`` (reproducible for its placement; each splits its
+    rows against its own device's memory, ``rows_per_chunk``).  The
+    burn-in is dropped on the device.  Returns one untabulated trace of
+    the kept steps per problem.
     """
     log_reads = prepare_reads(reads).numpy()
     log_reads, init, n_alleles_eff, fix_llk, restore = _compact_het(
@@ -345,32 +375,43 @@ def _fit_denovo_batch_torch(
     dist = np.array(break_dist[:, :n_pos], float)
     dist[:, -1] += break_dist[:, n_pos:].sum(axis=1)
 
-    def _dev(x, dtype):
-        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype).to(device)
+    def _host(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype)
 
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
-    with _timing.stage("device.torch_sampler"):
-        genotypes, llks = _sampler.denovo_sampler(
-            generator, _dev(init, torch.long), _dev(log_reads, torch.float64),
-            _dev(counts, torch.float64), _dev(n_alleles_eff, torch.long),
-            _dev(dist, torch.float64), temperatures, n_steps=steps, burn=burn,
-            inbreeding=None if inbreeding is None else _dev(inbreeding, torch.float64),
+    n_samples = len(log_reads)
+    arrays = [
+        _host(init, torch.long), _host(log_reads, torch.float64),
+        _host(counts, torch.float64), _host(n_alleles_eff, torch.long),
+        _host(dist, torch.float64),
+    ]
+    if inbreeding is not None:
+        arrays.append(_host(inbreeding, torch.float64))
+
+    def launch(sh):
+        generator = torch.Generator(device=sh.device)
+        generator.manual_seed(shard_seed(seed, sh.start))
+        return _sampler.denovo_sampler(
+            generator, *sh.arrays[:5], temperatures, n_steps=steps, burn=burn,
+            inbreeding=sh.arrays[5] if inbreeding is not None else None,
             recombination_step_probability=p_recomb,
             partial_dosage_step_probability=p_partial,
             dosage_step_probability=p_full,
         )
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    with _timing.stage("device.trace_fetch"):
-        genotypes = genotypes.cpu().numpy()
-        llks = llks.cpu().numpy()
-    out = []
-    for i in range(len(genotypes)):
-        t = GenotypeMultiTrace(restore(genotypes[i], i), llks[i] + fix_llk[i])
-        t.pre_burned = burn
-        out.append(t)
-    return out
+
+    def fetch(sh, run):
+        with _timing.stage("device.trace_fetch"):
+            genotypes = run[0].cpu().numpy()
+            llks = run[1].cpu().numpy()
+        part = []
+        for j in range(len(genotypes)):
+            i = sh.start + j
+            t = GenotypeMultiTrace(restore(genotypes[j], i), llks[j] + fix_llk[i])
+            t.pre_burned = burn
+            part.append(t)
+        return part
+
+    return run_sharded(n_samples, arrays, launch, fetch, devices=devices, device=device,
+                       stage="device.torch_sampler")
 
 
 def fit_denovo_batch(
@@ -391,9 +432,12 @@ def fit_denovo_batch(
     random_seed=None,
     burn=0,
     device=None,
+    devices="auto",
 ):
     """Run the de novo assembler for MANY samples of one locus in one
-    launch.  Returns one trace per sample."""
+    launch (one per device of ``devices``,
+    ``parallel.sharding.problem_devices``).  Returns one trace per
+    sample."""
     n_samples = len(reads_list)
     n_alleles = np.array(n_alleles, dtype=np.int8)
     n_pos = len(n_alleles)
@@ -417,7 +461,7 @@ def fit_denovo_batch(
         steps, chains, alpha, beta, fix_homozygous,
         recombination_step_probability, partial_dosage_step_probability,
         dosage_step_probability, temperatures, random_seed, burn=burn,
-        device=resolve_device(device),
+        device=resolve_device(device), devices=devices,
     )
 
 
@@ -426,7 +470,7 @@ def _fit_denovo_core(
     steps, chains, alpha, beta, fix_homozygous,
     recombination_step_probability, partial_dosage_step_probability,
     dosage_step_probability, temperatures, random_seed, burn=0, *,
-    device, tabulate=True, initial=None, n_intervals=None,
+    device, tabulate=True, initial=None, n_intervals=None, devices="auto",
 ):
     """Shared batched-assembly core over pre-padded arrays.
 
@@ -439,7 +483,8 @@ def _fit_denovo_core(
     the torch de novo sampler for the whole block where K1 cannot run it
     (``k1_unsupported_reason``) or ``n_intervals`` is given.  Initial
     genotypes and the sampler seed both come from one ``torch.Generator``
-    seeded with ``random_seed``.
+    seeded with ``random_seed``.  Either route spreads the block's
+    problems over ``devices`` (``parallel.sharding.problem_devices``).
     """
     temps = np.sort(np.asarray(temperatures, float))
     if temps[-1] != 1.0:
@@ -511,6 +556,7 @@ def _fit_denovo_core(
             chains, kernel_seed, recombination_step_probability,
             partial_dosage_step_probability, dosage_step_probability, device,
             burn=burn, tabulate=tabulate, temperatures=tuple(temps), alphas=alphas,
+            devices=devices,
         )
         _fallback.note_path("denovo", "cuda" if device.type == "cuda" else "plain")
     else:
@@ -520,6 +566,7 @@ def _fit_denovo_core(
             partial_dosage_step_probability, dosage_step_probability, device,
             burn=burn, temperatures=temps,
             inbreeding=None if inbreeding is None else np.asarray(inbreeding, float),
+            devices=devices,
         )
         _fallback.note_path("denovo", "torch")
     out = []
@@ -552,9 +599,12 @@ def fit_denovo_multi(
     random_seed=None,
     burn=0,
     device=None,
+    devices="auto",
 ):
     """Run the de novo assembler for problems from MANY LOCI in one
-    launch per shape bucket.
+    launch per shape bucket (one per device of ``devices``,
+    ``parallel.sharding.problem_devices``; ``"auto"``: every visible card,
+    and a rank's share in a process group).
 
     Each problem is a dict with ``reads`` (float[R, nb_i, A_i]),
     ``counts`` (float[R]), ``n_alleles`` (int[nb_i]) and optionally
@@ -601,6 +651,7 @@ def fit_denovo_multi(
                 random_seed=base_seed + 7919 * ordinal,
                 burn=burn,
                 device=device,
+                devices=devices,
             )
             for i, t in zip(idxs, sub):
                 out[i] = t
@@ -643,7 +694,7 @@ def fit_denovo_multi(
         steps, chains, alpha, beta, fix_homozygous,
         recombination_step_probability, partial_dosage_step_probability,
         dosage_step_probability, temperatures, random_seed, burn=burn,
-        device=device,
+        device=device, devices=devices,
     )
     return [tr.truncate_positions(nb_list[i]) for i, tr in enumerate(traces)]
 

@@ -31,9 +31,11 @@ from mchap_tpu_torch.ops.cuda_calling import (
     k2_unsupported_reason,
 )
 from mchap_tpu_torch.ops.likelihood import MIN_LOG, prepare_reads, read_hap_loglik
+from mchap_tpu_torch.parallel.sharding import run_sharded
 from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.device import resolve_device
+from mchap_tpu_torch.utils.seeds import shard_seed
 
 _STEP_TYPES = {"Gibbs": 0, "Metropolis-Hastings": 1}
 
@@ -45,97 +47,121 @@ def _step_type(name):
 
 
 def _fit_batch_kernel(read_hap, counts, ploidy, steps, chains, seed, n_valid,
-                      burn=0, *, device, pinned_noise=None):
-    """Run all problems x chains through one K2 launch.
+                      burn=0, *, device, pinned_noise=None, devices="auto"):
+    """Run all problems x chains through K2, one launch per shard.
 
     read_hap [S, R, H] (cast to f32, as the JAX package does), counts
     [S, R], n_valid [S]: columns >= n_valid[i] of problem i are padding,
     and its trace is labelled with n_valid[i] alleles.  Chain
     ``i * chains + c`` is chain c of problem i; the reads stay per
     problem.  Every chain starts at allele 0 and sweeps its slots in
-    order (valid sampler choices, gated by exact enumeration).  Burn-in
-    is sliced on the device, so only kept steps are copied.
-    ``pinned_noise`` (a float) replaces every uniform draw (tests).
+    order (valid sampler choices, gated by exact enumeration).  The
+    problems are spread over ``devices`` (``parallel.sharding``; every
+    shard at the block's H and read bucket, its draws keyed by global
+    chain, so placement changes no result).  Burn-in is sliced on the
+    device, so only kept steps are copied.  ``pinned_noise`` (a float)
+    replaces every uniform draw (tests).
     """
-    rh = torch.as_tensor(read_hap).to(device=device, dtype=torch.float32)
+    rh = torch.as_tensor(read_hap, dtype=torch.float32).contiguous()
     S, _, H = rh.shape
-    counts_t = torch.as_tensor(counts).to(device=device, dtype=torch.float32)
+    counts_t = torch.as_tensor(counts, dtype=torch.float32).contiguous()
     n_valid = np.asarray(n_valid, np.int32)
-    nv = torch.as_tensor(n_valid).to(device)
-    problem = torch.arange(S, dtype=torch.int32, device=device).repeat_interleave(
-        chains
-    )
-    noise = None
-    if pinned_noise is not None:
-        noise = torch.full(
-            (steps, ploidy, H, S * chains), float(pinned_noise), device=device
-        )
-    with _timing.stage("device.kernel"):
-        alleles, llks = calling_sampler(
-            rh.contiguous(), counts_t.contiguous(), nv, problem, n_steps=steps,
-            ploidy=ploidy, seed=seed, noise=noise,
-        )
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    with _timing.stage("device.trace_fetch"):
-        alleles = alleles[burn:].cpu().numpy()
-        llks = llks[burn:].cpu().numpy()
     kept = steps - burn
-    genotypes = alleles.reshape(kept, ploidy, S, chains).transpose(2, 3, 0, 1)
-    llks = llks.reshape(kept, S, chains).transpose(1, 2, 0)
-    _fallback.note_path("calling", "cuda" if device.type == "cuda" else "plain")
-    return [
-        GenotypeAllelesMultiTrace(
-            genotypes[i], llks[i].astype(float), int(n_valid[i]), burn
+
+    def launch(sh):
+        n = sh.stop - sh.start
+        problem = torch.arange(n, dtype=torch.int32, device=sh.device)
+        noise = None
+        if pinned_noise is not None:
+            noise = torch.full(
+                (steps, ploidy, H, n * chains), float(pinned_noise), device=sh.device
+            )
+        return calling_sampler(
+            *sh.arrays, problem.repeat_interleave(chains), n_steps=steps,
+            ploidy=ploidy, seed=seed, noise=noise, chain_offset=sh.start * chains,
         )
-        for i in range(S)
-    ]
+
+    def fetch(sh, run):
+        n = sh.stop - sh.start
+        with _timing.stage("device.trace_fetch"):
+            alleles = run[0][burn:].cpu().numpy()
+            llks = run[1][burn:].cpu().numpy()
+        genotypes = alleles.reshape(kept, ploidy, n, chains).transpose(2, 3, 0, 1)
+        llks = llks.reshape(kept, n, chains).transpose(1, 2, 0)
+        return [
+            GenotypeAllelesMultiTrace(
+                genotypes[i], llks[i].astype(float), int(n_valid[sh.start + i]), burn
+            )
+            for i in range(n)
+        ]
+
+    traces = run_sharded(S, (rh, counts_t, torch.as_tensor(n_valid)), launch, fetch,
+                         devices=devices, device=device, stage="device.kernel")
+    _fallback.note_path("calling", "cuda" if device.type == "cuda" else "plain")
+    return traces
 
 
 def _fit_batch_torch(read_hap, counts, ploidy, steps, chains, seed, step_type,
                      inbreeding=None, frequencies=None, n_valid=None, burn=0, *,
-                     device, initial=None):
+                     device, initial=None, devices="auto"):
     """Run all problems x chains through the batched torch sampler.
 
     Initial genotypes are the greedy caller's unless ``initial``
-    ([S, chains, ploidy]) is given.  Returns one trace per problem.
+    ([S, chains, ploidy]) is given.  The problems are spread over
+    ``devices`` (``parallel.sharding``), each shard drawing from its own
+    generator seeded with ``shard_seed(seed, first problem)``: a run is
+    reproducible for its placement.  Returns one trace per problem.
     """
-    rh = torch.as_tensor(read_hap, dtype=torch.float64).to(device)
+    rh = torch.as_tensor(read_hap, dtype=torch.float64).contiguous()
     S, _, H = rh.shape
-    counts_t = torch.as_tensor(counts, dtype=torch.float64).to(device)
     prior_kind = 0 if inbreeding is None else 1
-    inbreeding_t = torch.as_tensor(
-        np.zeros(S) if inbreeding is None else np.asarray(inbreeding, float),
-        dtype=torch.float64,
-    ).to(device)
-    freqs = None
+    arrays = {
+        "rh": rh,
+        "counts": torch.as_tensor(counts, dtype=torch.float64).contiguous(),
+        "inbreeding": torch.as_tensor(
+            np.zeros(S) if inbreeding is None else np.asarray(inbreeding, float),
+            dtype=torch.float64,
+        ),
+    }
     if frequencies is not None:
-        freqs = torch.as_tensor(np.asarray(frequencies, float)).to(device)
-        freqs = freqs.expand(S, H)
-    nv = None if n_valid is None else torch.as_tensor(np.asarray(n_valid)).to(device)
-    if initial is None:
-        initial = _mcmc.greedy_caller(
-            rh, counts_t, ploidy=ploidy, prior_kind=prior_kind,
-            inbreeding=inbreeding_t, frequencies=freqs, n_valid=nv,
-        )[:, None, :].expand(S, chains, ploidy)
-    else:
-        initial = torch.as_tensor(np.asarray(initial)).to(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    with _timing.stage("device.sampler"):
-        genotypes, llks = _mcmc.calling_sampler(
-            gen, initial, rh, counts_t, n_steps=steps, step_type=step_type,
-            prior_kind=prior_kind, inbreeding=inbreeding_t, frequencies=freqs,
+        arrays["freqs"] = torch.as_tensor(
+            np.broadcast_to(np.asarray(frequencies, float), (S, H)).copy()
+        )
+    if n_valid is not None:
+        arrays["nv"] = torch.as_tensor(np.asarray(n_valid))
+    if initial is not None:
+        arrays["initial"] = torch.as_tensor(np.ascontiguousarray(initial))
+    n_alleles = [H] * S if n_valid is None else [int(n) for n in n_valid]
+
+    def launch(sh):
+        x = dict(zip(arrays, sh.arrays))
+        freqs, nv = x.get("freqs"), x.get("nv")
+        init = x.get("initial")
+        if init is None:
+            init = _mcmc.greedy_caller(
+                x["rh"], x["counts"], ploidy=ploidy, prior_kind=prior_kind,
+                inbreeding=x["inbreeding"], frequencies=freqs, n_valid=nv,
+            )[:, None, :].expand(sh.stop - sh.start, chains, ploidy)
+        gen = torch.Generator(device=sh.device)
+        gen.manual_seed(shard_seed(seed, sh.start))
+        return _mcmc.calling_sampler(
+            gen, init, x["rh"], x["counts"], n_steps=steps, step_type=step_type,
+            prior_kind=prior_kind, inbreeding=x["inbreeding"], frequencies=freqs,
             n_valid=nv,
         )
-    genotypes = genotypes[:, :, burn:].to(allele_dtype(H)).cpu().numpy()
-    llks = llks[:, :, burn:].cpu().numpy()
+
+    def fetch(sh, run):
+        genotypes = run[0][:, :, burn:].to(allele_dtype(H)).cpu().numpy()
+        llks = run[1][:, :, burn:].cpu().numpy()
+        return [
+            GenotypeAllelesMultiTrace(genotypes[i], llks[i], n_alleles[sh.start + i], burn)
+            for i in range(sh.stop - sh.start)
+        ]
+
+    traces = run_sharded(S, tuple(arrays.values()), launch, fetch, devices=devices,
+                         device=device, stage="device.sampler")
     _fallback.note_path("calling", "torch")
-    n_alleles = [H] * S if n_valid is None else [int(n) for n in n_valid]
-    return [
-        GenotypeAllelesMultiTrace(genotypes[i], llks[i], n_alleles[i], burn)
-        for i in range(S)
-    ]
+    return traces
 
 
 @dataclass
@@ -219,12 +245,15 @@ def fit_calling_batch(
     step_type="Gibbs",
     burn=0,
     device=None,
+    devices="auto",
 ):
     """Fit the calling sampler for MANY samples of one locus in one launch.
 
     The reference application runs one sampler per sample
     (call.py:120-199); here one read-hap product covers all samples and
-    one launch all samples x chains.  Returns one trace per sample.
+    one launch all samples x chains (one per device of ``devices``,
+    ``parallel.sharding.problem_devices``).  Returns one trace per
+    sample.
     """
     haplotypes = np.asarray(haplotypes)
     n_alleles = len(haplotypes)
@@ -242,12 +271,12 @@ def fit_calling_batch(
             and k2_unsupported_reason(ploidy, read_hap.shape[1]) is None):
         return _fit_batch_kernel(
             read_hap, counts, ploidy, steps, chains, seed,
-            np.full(n_samples, n_alleles), burn=burn, device=device,
+            np.full(n_samples, n_alleles), burn=burn, device=device, devices=devices,
         )
     return _fit_batch_torch(
         read_hap, counts, ploidy, steps, chains, seed, step_type_i,
         inbreeding=inbreeding_list, frequencies=frequencies, burn=burn,
-        device=device,
+        device=device, devices=devices,
     )
 
 
@@ -260,6 +289,7 @@ def fit_calling_multi(
     step_type="Gibbs",
     burn=0,
     device=None,
+    devices="auto",
 ):
     """Fit the calling sampler for problems spanning MANY LOCI at once.
 
@@ -268,8 +298,10 @@ def fit_calling_multi(
     ``inbreeding``/``frequencies``.  Panels are padded to the block's
     largest with impossible (MIN_LOG) columns that ``n_valid`` masks,
     reads to a power-of-two bucket with zero counts; one launch then
-    samples every (locus, sample) chain.  Returns one trace per problem,
-    alleles indexed within each problem's own panel.
+    samples every (locus, sample) chain, spread over ``devices``
+    (``parallel.sharding.problem_devices``; ``"auto"``: every visible
+    card, and a rank's share in a process group).  Returns one trace per
+    problem, alleles indexed within each problem's own panel.
     """
     device = resolve_device(device)
     use_prior = any("inbreeding" in p for p in problems)
@@ -298,13 +330,13 @@ def fit_calling_multi(
             and k2_unsupported_reason(ploidy, read_hap.shape[1]) is None):
         return _fit_batch_kernel(
             read_hap, counts, ploidy, steps, chains, seed, n_valid, burn=burn,
-            device=device,
+            device=device, devices=devices,
         )
     return _fit_batch_torch(
         read_hap, counts, ploidy, steps, chains, seed, step_type_i,
         inbreeding=inbreeding_rows if use_prior else None,
         frequencies=np.stack(freq_rows) if use_prior else None,
-        n_valid=n_valid, burn=burn, device=device,
+        n_valid=n_valid, burn=burn, device=device, devices=devices,
     )
 
 

@@ -27,9 +27,11 @@ from mchap_tpu_torch.ops import cuda_pedigree as _k3
 from mchap_tpu_torch.ops import pedigree_mcmc as _kernel
 from mchap_tpu_torch.ops.calling_mcmc import greedy_caller
 from mchap_tpu_torch.ops.likelihood import MIN_LOG, prepare_reads, read_hap_loglik
+from mchap_tpu_torch.parallel.sharding import problem_devices, run_sharded
 from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.device import resolve_device
+from mchap_tpu_torch.utils.seeds import shard_seed
 
 # reference pedigree/classes.py:54-59
 _STEP_TYPES = {"Gibbs": 0, "Metropolis-Hastings": 1}
@@ -92,9 +94,20 @@ def _greedy_initial(rh, counts, n_valid, sample_ploidy, max_ploidy):
 
 def _fit(problems, sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
          gamete_error, steps, chains, seed, step_type, swap_parental_alleles,
-         burn, device, initial=None):
-    """All (problem, chain) chains through one sampler run; returns the
-    sorted trace int16[N, chains, steps - burn, S, maxp] and n_valid."""
+         burn, device, initial=None, pinned_noise=None, devices="auto"):
+    """All (problem, chain) chains through one sampler run per shard of
+    loci; returns the sorted trace int16[N, chains, steps - burn, S, maxp]
+    and n_valid.
+
+    The loci are spread over ``devices`` (``parallel.sharding``), every
+    shard at the block's plan, H and read bucket, from greedy initial
+    genotypes computed for the whole block on the first device (a CUDA matmul's
+    sums depend on its batch size, so per-shard greedy calls could start
+    a near-tied sample elsewhere): K3 keys its draws by global chain, so
+    placement changes no result; the torch sampler's shards draw from
+    generators seeded with ``shard_seed(seed, first locus)``.
+    ``pinned_noise`` (a float) replaces every uniform draw of K3 (tests).
+    """
     if step_type not in _STEP_TYPES:
         raise ValueError('MCMC step type must be "Gibbs" or "Metropolis-Hastings"')
     device = resolve_device(device)
@@ -103,16 +116,16 @@ def _fit(problems, sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
     h_max = max(len(p["haplotypes"]) for p in problems)
     rh_np, counts_np, freq_np, nv_np = _assemble_problems_np(problems, h_max)
     N, S = rh_np.shape[:2]
-    rh = torch.as_tensor(rh_np, device=device)
-    counts = torch.as_tensor(counts_np, device=device)
-    n_valid = torch.as_tensor(nv_np, device=device)
+    with np.errstate(divide="ignore"):
+        log_freqs = np.log(freq_np)
+    arrays = [torch.as_tensor(x) for x in (rh_np, counts_np, freq_np, log_freqs, nv_np)]
+    devs = problem_devices(N, devices, device) or [device]
     if initial is None:
-        init = _greedy_initial(rh, counts, n_valid, sample_ploidy, max_ploidy)
+        init = _greedy_initial(*(arrays[i].to(devs[0]) for i in (0, 1, 4)), sample_ploidy,
+                               max_ploidy).cpu()
     else:
-        init = torch.as_tensor(np.asarray(initial, np.int64), device=device)
-        init = init.expand(N, S, max_ploidy)
-    problem = torch.arange(N, dtype=torch.int32, device=device).repeat_interleave(chains)
-    init = init.repeat_interleave(chains, dim=0).to(torch.int32).contiguous()
+        init = torch.as_tensor(np.asarray(initial, np.int64)).expand(N, S, max_ploidy)
+    arrays.append(init.contiguous())
 
     reason = _k3.k3_unsupported_reason(
         sample_ploidy, sample_parents, gamete_tau, gamete_lambda, step_type
@@ -120,32 +133,48 @@ def _fit(problems, sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
     if reason is None:
         plan = _k3.Plan(sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
                         gamete_error, swap_parental_alleles=swap_parental_alleles)
-        with _timing.stage("device.kernel"):
-            trace = _k3.pedigree_sampler(
-                rh.float().contiguous(), counts.float().contiguous(),
-                torch.as_tensor(freq_np, device=device), n_valid, problem, init,
-                plan, n_steps=steps, seed=seed,
+
+    def launch(sh):
+        rh, counts, freqs, log_freqs, n_valid, init = sh.arrays
+        n = sh.stop - sh.start
+        problem = torch.arange(n, dtype=torch.int32, device=sh.device)
+        problem = problem.repeat_interleave(chains)
+        init = init.repeat_interleave(chains, dim=0).to(torch.int32).contiguous()
+        if reason is None:
+            noise = None
+            if pinned_noise is not None:
+                noise = torch.full(
+                    (steps, plan.n_draws(rh.shape[-1]), n * chains),
+                    float(pinned_noise), device=sh.device,
+                )
+            return _k3.pedigree_sampler(
+                rh.float().contiguous(), counts.float().contiguous(), freqs,
+                n_valid, problem, init, plan, n_steps=steps, seed=seed,
+                noise=noise, chain_offset=sh.start * chains,
             )
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+        ped = _kernel.Pedigree(sample_ploidy, sample_parents, gamete_tau,
+                               gamete_lambda, gamete_error, sh.device)
+        gen = torch.Generator(device=sh.device)
+        gen.manual_seed(shard_seed(seed, sh.start))
+        return _kernel.pedigree_sampler(
+            gen, init, rh, counts, log_freqs, n_valid, problem, ped,
+            n_steps=steps, step_type=_STEP_TYPES[step_type],
+            swap_parental_alleles=swap_parental_alleles,
+        )
+
+    def fetch(sh, trace):
+        with _timing.stage("device.trace_fetch"):
+            trace = trace[:, burn:].to(torch.int16).cpu().numpy()
+        return list(trace.reshape((sh.stop - sh.start, chains) + trace.shape[1:]))
+
+    trace = np.stack(run_sharded(
+        N, arrays, launch, fetch, devices=devs, device=device,
+        stage="device.kernel" if reason is None else "device.sampler",
+    ))
+    if reason is None:
         _fallback.note_path("pedigree", "cuda" if device.type == "cuda" else "plain")
     else:
-        ped = _kernel.Pedigree(sample_ploidy, sample_parents, gamete_tau,
-                               gamete_lambda, gamete_error, device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
-        with np.errstate(divide="ignore"):
-            log_freqs = torch.as_tensor(np.log(freq_np), device=device)
-        with _timing.stage("device.sampler"):
-            trace = _kernel.pedigree_sampler(
-                gen, init, rh, counts, log_freqs, n_valid, problem, ped,
-                n_steps=steps, step_type=_STEP_TYPES[step_type],
-                swap_parental_alleles=swap_parental_alleles,
-            )
         _fallback.note_path("pedigree", "torch")
-    with _timing.stage("device.trace_fetch"):
-        trace = trace[:, burn:].to(torch.int16).cpu().numpy()
-    trace = trace.reshape((N, chains) + trace.shape[1:])
     return _sort_roll_trace(trace, sample_ploidy, max_ploidy), nv_np
 
 
@@ -209,6 +238,7 @@ def fit_pedigree_multi(
     swap_parental_alleles=True,
     burn=0,
     device=None,
+    devices="auto",
 ):
     """Fit the pedigree sampler for MANY LOCI of the same pedigree at once.
 
@@ -217,14 +247,16 @@ def fit_pedigree_multi(
     (i[H_i, P_i]) and optionally ``frequencies`` (f[H_i]).  Panels are
     padded to the block's largest with MIN_LOG read-hap columns and zero
     frequency (never drawn: ``n_valid``), reads to a power-of-two bucket.
-    Burn-in is sliced on the device.  Returns one
+    Burn-in is sliced on the device.  The loci are spread over ``devices``
+    (``parallel.sharding.problem_devices``; ``"auto"``: every visible
+    card, and a rank's share in a process group).  Returns one
     PedigreeAllelesMultiTrace per problem.
     """
     seed = random_seed if random_seed is not None else 0
     trace, nv = _fit(
         problems, sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
         gamete_error, steps, chains, seed, step_type, swap_parental_alleles,
-        burn, device,
+        burn, device, devices=devices,
     )
     return [
         PedigreeAllelesMultiTrace(trace[i], n_allele=int(nv[i]), pre_burned=burn)

@@ -1,8 +1,7 @@
 """VCF genotype-index combinadics and counting functions (numpy).
 
-Port of ``mchap_tpu/numerics/combinadics.py``, limited to what the
-assemble and call paths use.  Genotype tables are small and built once
-on the host, so exact int64 numpy arithmetic replaces the JAX versions.
+Port of ``mchap_tpu/numerics/combinadics.py``.  Genotype tables are
+small and built once on the host, so exact int64 numpy arithmetic replaces the JAX versions.
 """
 
 from functools import lru_cache
@@ -12,16 +11,22 @@ import math
 import numpy as np
 
 
-def _comb_with_replacement(n, k: int):
-    """Multiset coefficient C(n + k - 1, k) for int64 arrays ``n``, static
-    ``k``; reference jitutils.py:228-250."""
+def comb(n, k: int):
+    """Exact binomial coefficient C(n, k) for int64 arrays ``n`` and a
+    static ``k`` (ascending factors, each partial product a binomial
+    times d!, so the integer division is exact); reference
+    jitutils.py:195-225."""
     n = np.asarray(n, np.int64)
-    m = n + k - 1
-    r = np.ones_like(m)
+    r = np.ones_like(n)
     for d in range(1, k + 1):
-        r = r * (m - k + d) // d
-    r = np.where(m < k, 0, r)
-    return np.where((n == 0) & (k == 0), 0, r)
+        r = r * (n - k + d) // d
+    return np.where(n < k, 0, r)
+
+
+def comb_with_replacement(n, k: int):
+    """Multiset coefficient C(n + k - 1, k); reference jitutils.py:228-250."""
+    n = np.asarray(n, np.int64)
+    return np.where((n == 0) & (k == 0), 0, comb(n + k - 1, k))
 
 
 def genotype_alleles_as_index(alleles):
@@ -35,7 +40,7 @@ def genotype_alleles_as_index(alleles):
     ploidy = alleles.shape[-1]
     index = np.zeros(alleles.shape[:-1], np.int64)
     for i in range(ploidy):
-        index = index + _comb_with_replacement(alleles[..., i], i + 1)
+        index = index + comb_with_replacement(alleles[..., i], i + 1)
     return index
 
 
@@ -92,6 +97,18 @@ def count_unique_haplotypes(u_alleles) -> int:
 def count_unique_genotypes(u_haps: int, ploidy: int) -> int:
     """Multiset coefficient; reference combinatorics.py:35-54."""
     return math.comb(u_haps + ploidy - 1, ploidy)
+
+
+def count_unique_genotype_permutations(u_haps: int, ploidy: int) -> int:
+    """Reference combinatorics.py:57-76."""
+    return u_haps**ploidy
+
+
+def count_haplotype_universial_occurance(u_haps: int, ploidy: int) -> int:
+    """Reference combinatorics.py:79-98 (name kept verbatim for API parity)."""
+    return math.factorial(u_haps + ploidy - 1) // (
+        math.factorial(ploidy - 1) * math.factorial(u_haps)
+    )
 
 
 def count_genotype_permutations(dosage) -> int:

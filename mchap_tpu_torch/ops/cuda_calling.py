@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from mchap_tpu_torch.ops import nvcc_build
+from mchap_tpu_torch.utils.seeds import shard_seed
 
 _NAME = "calling_sampler"
 _WARPS_PER_BLOCK = 4
@@ -102,21 +103,27 @@ def _check_inputs(rh, counts, n_valid, problem, noise, n_steps, ploidy):
 
 
 def calling_sampler(rh, counts, n_valid, problem, *, n_steps, ploidy, seed=0,
-                    noise=None):
+                    noise=None, chain_offset=0):
     """Run the calling sampler for C chains; see the module docstring.
 
     On CUDA tensors this launches the kernel (and raises if it cannot);
     on CPU tensors it runs ``calling_sampler_plain``.  ``noise``
     f32[n_steps, P, H, C] pins every uniform draw (tests); otherwise draws
-    come from Philox4x32-10 keyed by (seed, chain) on CUDA and from a
-    ``torch.Generator`` seeded with ``seed`` on the CPU.
+    come from Philox4x32-10 keyed by (seed, chain_offset + chain) on CUDA
+    and from a ``torch.Generator`` seeded with ``shard_seed(seed,
+    chain_offset)`` on the CPU.  ``chain_offset`` is chain 0's index in
+    the whole block when the block is split over launches
+    (``parallel.sharding``).
     """
     _check_inputs(rh, counts, n_valid, problem, noise, n_steps, ploidy)
+    if not 0 <= chain_offset <= 2 ** 31 - 1 - problem.shape[0]:
+        raise ValueError(f"chain_offset {chain_offset} + chains must stay below 2**31")
     kwargs = dict(n_steps=n_steps, ploidy=ploidy, seed=seed, noise=noise)
     if rh.device.type == "cuda":
-        return _launch(rh, counts, n_valid, problem, **kwargs)
+        return _launch(rh, counts, n_valid, problem, chain_offset=chain_offset, **kwargs)
     if rh.device.type != "cpu":
         raise ValueError(f"unsupported device {rh.device}")
+    kwargs["seed"] = shard_seed(seed, chain_offset)
     return calling_sampler_plain(rh, counts, n_valid, problem, **kwargs)
 
 
@@ -140,16 +147,17 @@ def _philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def philox_noise(seed, n_steps, ploidy, H, C):
+def philox_noise(seed, n_steps, ploidy, H, C, chain_offset=0):
     """The uniforms the kernel draws from its own Philox stream when no
     ``noise`` is given, made on the host: f32[n_steps, P, H, C].  Draw
     (step, slot, h) of chain c is word h % 4 of the call with key (low 32
-    bits of seed, c) and counter (step, slot, h // 4, high 32 bits of
-    seed), its top 23 bits over 2**23, at least 1e-12.  Passed as
-    ``noise``, it holds the kernel's Philox path to the plain version."""
+    bits of seed, chain_offset + c) and counter (step, slot, h // 4, high
+    32 bits of seed), its top 23 bits over 2**23, at least 1e-12.  Passed
+    as ``noise``, it holds the kernel's Philox path to the plain version."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     nq = (H + 3) // 4
-    t, k, q, c = np.ix_(np.arange(n_steps), np.arange(ploidy), np.arange(nq), np.arange(C))
+    t, k, q, c = np.ix_(np.arange(n_steps), np.arange(ploidy), np.arange(nq),
+                        chain_offset + np.arange(C))
     words = _philox4x32_10((t, k, q, seed >> 32), (seed & 0xFFFFFFFF, c))
     bits = np.stack(words, axis=3).reshape(n_steps, ploidy, 4 * nq, C)[:, :, :H]
     u = (bits >> np.uint64(9)).astype(np.float32) * np.float32(1.0 / 8388608.0)
@@ -183,6 +191,7 @@ def load_library():
             + [ctypes.c_float]  # log P
             + [ctypes.c_int]  # out_bytes
             + [ctypes.c_uint64]  # seed
+            + [ctypes.c_uint32]  # chain_offset
             + [ctypes.c_int]  # warps per block
             + [ctypes.c_void_p]  # stream
         )
@@ -194,7 +203,8 @@ def load_library():
         return lib
 
 
-def _launch(rh, counts, n_valid, problem, *, n_steps, ploidy, seed, noise):
+def _launch(rh, counts, n_valid, problem, *, n_steps, ploidy, seed, noise,
+            chain_offset=0):
     S, R, H = rh.shape
     C = problem.shape[0]
     P = ploidy
@@ -214,8 +224,8 @@ def _launch(rh, counts, n_valid, problem, *, n_steps, ploidy, seed, noise):
         rh.data_ptr(), counts.data_ptr(), n_valid.data_ptr(), problem.data_ptr(),
         None if noise is None else noise.data_ptr(), e.data_ptr(), mlp.data_ptr(),
         alleles.data_ptr(), llks.data_ptr(), S, R, H, P, C, n_steps,
-        log_ploidy(P), alleles.element_size(), seed & 0xFFFFFFFFFFFFFFFF, warps,
-        stream,
+        log_ploidy(P), alleles.element_size(), seed & 0xFFFFFFFFFFFFFFFF,
+        chain_offset, warps, stream,
     )
     if err != 0:
         msg = lib.calling_sampler_error_string(err).decode()

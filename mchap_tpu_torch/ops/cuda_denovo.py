@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from mchap_tpu_torch.ops import nvcc_build
+from mchap_tpu_torch.utils.seeds import shard_seed
 
 NEG_BIG = -1e30
 MAX_TEMPS = 8
@@ -235,17 +236,21 @@ def _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps,
 
 def denovo_sampler(lr, counts, g_init, nall, pbreak, problem, *, n_steps,
                    p_recomb=0.5, p_partial=0.5, p_full=1.0, refresh=64,
-                   stage=3, seed=0, noise=None, temps=None, alpha=None):
+                   stage=3, seed=0, noise=None, temps=None, alpha=None,
+                   chain_offset=0):
     """Run the de novo sampler for C chains; see the module docstring.
 
     On CUDA tensors this launches the kernel (and raises if it cannot);
     on CPU tensors it runs ``denovo_sampler_plain``.  ``noise``
     f32[n_steps, D, C] (``draw_layout(P, NB, T)["D"]``) pins every
     uniform draw (tests); otherwise draws come from Philox4x32-10 keyed
-    by (seed, chain) on CUDA and from a ``torch.Generator`` seeded with
-    ``seed`` on the CPU.  ``temps`` (default ``[1.0]``) is the tempering
-    ladder and ``alpha`` f32[S] (default None, the flat prior) the
-    Dirichlet-multinomial dispersion per problem.
+    by (seed, chain_offset + chain) on CUDA and from a ``torch.Generator``
+    seeded with ``shard_seed(seed, chain_offset)`` on the CPU.
+    ``chain_offset`` is chain 0's index in the whole block when the
+    block is split over launches (``parallel.sharding``).  ``temps``
+    (default ``[1.0]``) is the tempering ladder and ``alpha`` f32[S]
+    (default None, the flat prior) the Dirichlet-multinomial dispersion
+    per problem.
     """
     temps = ladder(temps)
     _check_inputs(lr, counts, g_init, nall, pbreak, problem, noise, n_steps,
@@ -259,10 +264,14 @@ def denovo_sampler(lr, counts, g_init, nall, pbreak, problem, *, n_steps,
         p_full=p_full, refresh=refresh, stage=stage, seed=seed, noise=noise,
         temps=temps, alpha=alpha,
     )
+    if not 0 <= chain_offset < 2 ** 32:
+        raise ValueError(f"chain_offset {chain_offset} outside [0, 2**32)")
     if lr.device.type == "cuda":
-        return _launch(lr, counts, g_init, nall, pbreak, problem, **kwargs)
+        return _launch(lr, counts, g_init, nall, pbreak, problem,
+                       chain_offset=chain_offset, **kwargs)
     if lr.device.type != "cpu":
         raise ValueError(f"unsupported device {lr.device}")
+    kwargs["seed"] = shard_seed(seed, chain_offset)
     return denovo_sampler_plain(
         lr, counts, g_init, nall, pbreak, problem, **kwargs
     )
@@ -314,6 +323,7 @@ def _build(ladder):
         + [ctypes.c_float] * 3  # p_recomb p_partial p_full
         + [ctypes.c_int] * 3  # refresh stage out_bytes
         + [ctypes.c_uint64]  # seed
+        + [ctypes.c_uint32]  # chain_offset
         + [ctypes.c_int]  # warps per block
         + [ctypes.c_void_p]  # stream
     )
@@ -364,7 +374,8 @@ def _launch_plan(lib, P, R, NB, T, C, device):
 
 
 def _launch(lr, counts, g_init, nall, pbreak, problem, *, n_steps, p_recomb,
-            p_partial, p_full, refresh, stage, seed, noise, temps, alpha):
+            p_partial, p_full, refresh, stage, seed, noise, temps, alpha,
+            chain_offset=0):
     S, NB, A, R = lr.shape
     P, _, C = g_init.shape
     T = len(temps)
@@ -384,7 +395,7 @@ def _launch(lr, counts, g_init, nall, pbreak, problem, *, n_steps, p_recomb,
         None if scratch is None else scratch.data_ptr(),
         S, R, NB, A, P, C, n_steps, T, ctypes.addressof(temps_host),
         p_recomb, p_partial, p_full, refresh, stage, trace.element_size(),
-        seed & 0xFFFFFFFFFFFFFFFF, warps, stream,
+        seed & 0xFFFFFFFFFFFFFFFF, chain_offset, warps, stream,
     )
     if err != 0:
         msg = lib.denovo_sampler_error_string(err).decode()

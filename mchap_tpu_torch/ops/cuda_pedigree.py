@@ -68,6 +68,7 @@ import torch
 
 from mchap_tpu_torch.ops import nvcc_build
 from mchap_tpu_torch.ops.pedigree_mcmc import markov_blankets
+from mchap_tpu_torch.utils.seeds import shard_seed
 
 _NAME = "pedigree_sampler"
 MAX_PLOIDY = 8
@@ -311,22 +312,28 @@ def _check_inputs(rh, counts, freqs, n_valid, problem, initial, plan, noise, n_s
 
 
 def pedigree_sampler(rh, counts, freqs, n_valid, problem, initial, plan, *,
-                     n_steps, seed=0, noise=None):
+                     n_steps, seed=0, noise=None, chain_offset=0):
     """Run K3 for C chains; see the module docstring.
 
     On CUDA tensors this launches the kernel (and raises if it cannot);
     on CPU tensors it runs ``pedigree_sampler_plain``.  ``noise``
     f32[n_steps, plan.n_draws(H), C] pins every uniform draw (tests);
-    otherwise draws come from Philox4x32-10 keyed by (seed, chain) on
-    CUDA and from a ``torch.Generator`` seeded with ``seed`` on the CPU.
+    otherwise draws come from Philox4x32-10 keyed by (seed, chain_offset
+    + chain) on CUDA and from a ``torch.Generator`` seeded with
+    ``shard_seed(seed, chain_offset)`` on the CPU.  ``chain_offset`` is
+    chain 0's index in the whole block when the block is split over
+    launches (``parallel.sharding``).
     """
     _check_inputs(rh, counts, freqs, n_valid, problem, initial, plan, noise, n_steps)
+    if not 0 <= chain_offset < 2 ** 32:
+        raise ValueError(f"chain_offset {chain_offset} outside [0, 2**32)")
     args = (rh, counts, freqs, n_valid, problem, initial, plan)
     kwargs = dict(n_steps=n_steps, seed=seed, noise=noise)
     if rh.device.type == "cuda":
-        return _launch(*args, **kwargs)
+        return _launch(*args, chain_offset=chain_offset, **kwargs)
     if rh.device.type != "cpu":
         raise ValueError(f"unsupported device {rh.device}")
+    kwargs["seed"] = shard_seed(seed, chain_offset)
     return pedigree_sampler_plain(*args, **kwargs)
 
 
@@ -361,6 +368,7 @@ def load_library():
             + [ctypes.c_void_p]  # trace
             + [ctypes.c_int] * 9  # N S R H C maxp n_pairs n_waves n_steps
             + [ctypes.c_uint64]  # seed
+            + [ctypes.c_uint32]  # chain_offset
             + [ctypes.c_int]  # warps per block
             + [ctypes.c_void_p]  # stream
         )
@@ -402,7 +410,8 @@ def launch_warps(plan, n_chains, n_reads, device):
     )
 
 
-def _launch(rh, counts, freqs, n_valid, problem, initial, plan, *, n_steps, seed, noise):
+def _launch(rh, counts, freqs, n_valid, problem, initial, plan, *, n_steps, seed, noise,
+            chain_offset=0):
     N, S, R, H = rh.shape
     C = problem.shape[0]
     maxp = plan.max_ploidy
@@ -422,7 +431,8 @@ def _launch(rh, counts, freqs, n_valid, problem, initial, plan, *, n_steps, seed
         problem.data_ptr(), initial.data_ptr(),
         None if noise is None else noise.data_ptr(), ints.data_ptr(),
         weights.data_ptr(), *offsets, trace.data_ptr(), N, S, R, H, C, maxp,
-        len(plan.pairs), len(plan.waves), n_steps, seed & 0xFFFFFFFFFFFFFFFF, warps, stream,
+        len(plan.pairs), len(plan.waves), n_steps, seed & 0xFFFFFFFFFFFFFFFF, chain_offset,
+        warps, stream,
     )
     if err != 0:
         msg = lib.pedigree_sampler_error_string(err).decode()

@@ -188,29 +188,17 @@ def _problems_per_launch(n_reads, n_pad, ploidy, device):
     return max(1, memory_budget(device) // per_problem)
 
 
-def exact_posterior_stats_multi(problems, ploidy, dtype=torch.float64, device=None):
-    """Exact posterior-mode statistics for problems from MANY LOCI (the
-    ``call-exact`` analogue of ``fit_calling_multi``'s cross-locus
-    batching), on ``device`` (default ``cuda``; ``resolve_device``).
+def exact_block_arrays(problems, dtype=torch.float64):
+    """A block's padded host inputs for ``exact_block_launch``:
+    (read_hap [B, R, H_pad], counts [B, R], n_valid [B], inbreeding [B],
+    frequencies [B, H_pad]), and whether any problem has a prior.
 
-    Each problem: dict with ``reads`` (f[R_i, nb_i, A_i]), ``counts``
-    (f[R_i]), ``haplotypes`` (i[H_i, nb_i]) and optionally
-    ``inbreeding``/``frequencies``.  Panels pad to the block maximum
-    (a power of two) with MIN_LOG read-hap columns, reads to a
-    power-of-two bucket; each launch then computes the full VCF-ordered
-    posterior of its problems (reference semantics
-    calling/exact.py:156-249).  The block is split over problems where
-    one launch would not fit the device (``_problems_per_launch``).
-
-    A problem with ``inbreeding`` but no ``frequencies`` uses the
-    uniform 1/H_i frequencies (the reference's ``frequencies=None``
-    parametrisation, made explicit so panel padding cannot distort it).
-
-    Returns a list of dicts with keys ``alleles``, ``mode_prob``,
-    ``support_prob``, ``freqs``, ``occur`` (sliced to each problem's
-    own panel size).
+    Panels pad to the block maximum (a power of two) with MIN_LOG
+    read-hap columns, reads to a power-of-two bucket.  A problem with
+    ``inbreeding`` but no ``frequencies`` uses the uniform 1/H_i
+    frequencies (the reference's ``frequencies=None`` parametrisation,
+    made explicit so panel padding cannot distort it).
     """
-    device = resolve_device(device)
     n_problems = len(problems)
     use_prior = any(p.get("inbreeding") is not None for p in problems)
     h_list = [len(p["haplotypes"]) for p in problems]
@@ -238,30 +226,66 @@ def exact_posterior_stats_multi(problems, ploidy, dtype=torch.float64, device=No
         if freqs is None:
             freqs = np.full(h_list[i], 1.0 / h_list[i])
         frequencies[i, : h_list[i]] = torch.as_tensor(np.asarray(freqs, float))
-    n_valid = torch.as_tensor(h_list)
+    return (read_hap, counts, torch.as_tensor(h_list), inbreeding, frequencies), use_prior
 
-    step = _problems_per_launch(bucket, h_max, ploidy, device)
-    parts = []
-    for lo in range(0, n_problems, step):
-        sl = slice(lo, lo + step)
-        out = _exact_stats_batch(
-            *(x[sl].to(device) for x in (read_hap, counts, n_valid, inbreeding, frequencies)),
-            ploidy=ploidy, use_prior=use_prior,
-        )
-        parts.append([x.cpu().numpy() for x in out])
-    alleles, mode_prob, support_prob, freqs, occur = (
-        np.concatenate(x) for x in zip(*parts)
-    )
+
+def exact_block_launch(read_hap, counts, n_valid, inbreeding, frequencies, *, ploidy,
+                       use_prior):
+    """Issue a block's ``_exact_stats_batch`` launches on its arrays'
+    device, split where one launch would not fit the device's memory
+    (``_problems_per_launch``); returns the statistics as tensors there,
+    without waiting for them."""
+    n, bucket, h_max = read_hap.shape
+    step = _problems_per_launch(bucket, h_max, ploidy, read_hap.device)
+    outs = [
+        _exact_stats_batch(read_hap[lo:lo + step], counts[lo:lo + step],
+                           n_valid[lo:lo + step], inbreeding[lo:lo + step],
+                           frequencies[lo:lo + step], ploidy=ploidy, use_prior=use_prior)
+        for lo in range(0, n, step)
+    ]
+    return [torch.cat(xs) for xs in zip(*outs)]
+
+
+def exact_block_results(stats, n_valid):
+    """``exact_block_launch``'s statistics as one dict per problem on the
+    host, sliced to each problem's own panel size ``n_valid``."""
+    alleles, mode_prob, support_prob, freqs, occur = (x.cpu().numpy() for x in stats)
     return [
         dict(
-            alleles=alleles[i],
-            mode_prob=float(mode_prob[i]),
-            support_prob=float(support_prob[i]),
-            freqs=freqs[i, : h_list[i]],
-            occur=occur[i, : h_list[i]],
+            alleles=alleles[j],
+            mode_prob=float(mode_prob[j]),
+            support_prob=float(support_prob[j]),
+            freqs=freqs[j, :h],
+            occur=occur[j, :h],
         )
-        for i in range(n_problems)
+        for j, h in enumerate(n_valid.tolist())
     ]
+
+
+def exact_posterior_stats_multi(problems, ploidy, dtype=torch.float64, device=None):
+    """Exact posterior-mode statistics for problems from MANY LOCI (the
+    ``call-exact`` analogue of ``fit_calling_multi``'s cross-locus
+    batching), on ``device`` (default ``cuda``; ``resolve_device``).
+
+    Each problem: dict with ``reads`` (f[R_i, nb_i, A_i]), ``counts``
+    (f[R_i]), ``haplotypes`` (i[H_i, nb_i]) and optionally
+    ``inbreeding``/``frequencies``; they are padded into one block
+    (``exact_block_arrays``) and each launch computes the full
+    VCF-ordered posterior of its problems (reference semantics
+    calling/exact.py:156-249).  ``call-exact`` spreads the block over
+    devices with these same three steps (``exact_block_arrays``,
+    ``exact_block_launch``, ``exact_block_results``); enumeration draws
+    nothing, so the result is the same under any placement.
+
+    Returns a list of dicts with keys ``alleles``, ``mode_prob``,
+    ``support_prob``, ``freqs``, ``occur`` (sliced to each problem's
+    own panel size).
+    """
+    device = resolve_device(device)
+    arrays, use_prior = exact_block_arrays(problems, dtype)
+    stats = exact_block_launch(*(x.to(device) for x in arrays), ploidy=ploidy,
+                               use_prior=use_prior)
+    return exact_block_results(stats, arrays[2])
 
 
 def posterior_mode(

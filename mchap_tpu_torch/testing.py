@@ -61,6 +61,32 @@ def simulate_reads(
     return reads
 
 
+def metropolis_hastings_transitions(transitions, llks, priors):
+    """Exact MH transition matrix over an explicit state graph.
+
+    Reference: testing.py:76-121.  ``transitions`` is the binary adjacency
+    of allowed proposals; returns the row-stochastic MH kernel.
+    """
+    transitions = np.asarray(transitions, dtype=float)
+    llks = np.asarray(llks, dtype=float)
+    priors = np.asarray(priors, dtype=float)
+
+    lk_ratios = np.exp(llks[None, :] - llks[:, None])
+    prior_ratios = priors[None, :] / priors[:, None]
+    proposal_ratios = transitions.sum(axis=-1, keepdims=True) / transitions.sum(
+        axis=0, keepdims=True
+    )
+    proposal_ratios = proposal_ratios * transitions
+
+    mh = lk_ratios * proposal_ratios * prior_ratios
+    mh[mh > 1] = 1
+    proposal_probability = transitions / np.sum(transitions, axis=-1, keepdims=True)
+    mh *= proposal_probability
+    np.fill_diagonal(mh, 0)
+    np.fill_diagonal(mh, 1 - mh.sum(axis=-1))
+    return mh
+
+
 def exact_pedigree_marginals(sample_llks, sample_parents, gamete_tau,
                              gamete_lambda, gamete_error, n_haps, ploidy,
                              log_frequencies=None):

@@ -23,6 +23,7 @@
 #define __device__
 #define __host__
 #define __shared__ static
+#define __constant__
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
@@ -177,6 +178,9 @@ inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((uint64_t)
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
+inline double __dsub_rn(double a, double b) { volatile double r = a - b; return r; }
+inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline long long clock64() { return 0; }

@@ -29,8 +29,8 @@ def _launch(m):
 
 def host_source(src):
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
-    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?unsigned char (\w+)\[\];",
-                 r"unsigned char* \1 = emu_dyn_smem();", src)
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+(?: \w+)?) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem());", src)
     src = re.sub(r'asm volatile\("bar\.sync %0, %1;" ::"r"\((.*?)\), "r"\((.*?)\) : "memory"\);',
                  r"emu_bar_sync((\1), (\2));", src)
     return re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", _launch, src, flags=re.S)

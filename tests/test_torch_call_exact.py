@@ -188,7 +188,7 @@ def test_failed_block_launch_raises(data, monkeypatch):
     def fail(*args, **kwargs):
         raise RuntimeError("launch failed")
 
-    monkeypatch.setattr(T, "exact_posterior_stats_multi", fail)
+    monkeypatch.setattr(T, "exact_block_launch", fail)
     fallback.PATHS.clear()
     with pytest.raises(RuntimeError, match="launch failed"):
         _run(torch_main, _argv(data, data["panel"], "--locus-batch", "3", "--device", "cpu"))

@@ -132,3 +132,43 @@ def test_kernel_philox_matches_host_stream(emulated, P, H, n_valid):
     np.testing.assert_array_equal(g_k.numpy(), g_p.numpy())
     np.testing.assert_allclose(l_k.numpy(), l_p.numpy(), rtol=0, atol=1e-4)
     assert (g_k[1:] != g_k[:-1]).any()
+
+
+def test_chain_offset_keys_philox_by_global_chain(emulated):
+    """A block's chains launched in three uneven pieces, each with its
+    first chain's index as ``chain_offset``, draw what one launch of the
+    whole block draws; ``philox_noise`` with the same offset gives a
+    piece's draws on the host."""
+    P, H, R, steps, C, seed = 4, 16, 24, 4, 8, (5 << 32) | 0x9E3779B9
+    rh, counts, nv, prob = _inputs(P, H, R, C, (16, 7), seed=4)
+    kw = dict(n_steps=steps, ploidy=P, seed=seed, noise=None)
+    g_all, l_all = KC._launch(rh, counts, nv, prob, **kw)
+    for lo, hi in [(0, 3), (3, 6), (6, 8)]:
+        g, l = KC._launch(rh, counts, nv, prob[lo:hi].contiguous(), chain_offset=lo, **kw)
+        np.testing.assert_array_equal(g.numpy(), g_all[:, :, lo:hi].numpy())
+        np.testing.assert_array_equal(l.numpy(), l_all[:, lo:hi].numpy())
+        noise = KC.philox_noise(seed, steps, P, H, hi - lo, chain_offset=lo)
+        np.testing.assert_array_equal(
+            noise.numpy(), KC.philox_noise(seed, steps, P, H, C)[..., lo:hi].numpy())
+    g_zero, _ = KC._launch(rh, counts, nv, prob[3:6].contiguous(), **kw)
+    assert (g_zero != g_all[:, :, 3:6]).any()
+
+
+@pytest.mark.parametrize("offset", [2 ** 20, 2 ** 31 - 1 - 8])
+def test_large_chain_offset(emulated, offset):
+    """At an offset whose per-chain bases lie far before their arrays (up
+    to the largest the wrapper takes, where c nears 2**31), the kernel's
+    Philox draws are still ``philox_noise``'s at that offset, with pinned
+    noise and without; one chain past that limit is refused."""
+    P, H, R, steps, C, seed = 4, 16, 24, 3, 8, (5 << 32) | 0x9E3779B9
+    args = _inputs(P, H, R, C, (16, 7), seed=6)
+    noise = KC.philox_noise(seed, steps, P, H, C, chain_offset=offset)
+    g_p, l_p = KC.calling_sampler_plain(*args, n_steps=steps, ploidy=P, noise=noise)
+    for pinned in (None, noise):
+        g_k, l_k = KC._launch(*args, n_steps=steps, ploidy=P, seed=seed, noise=pinned,
+                              chain_offset=offset)
+        np.testing.assert_array_equal(g_k.numpy(), g_p.numpy())
+        np.testing.assert_allclose(l_k.numpy(), l_p.numpy(), rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="chain_offset"):
+        KC.calling_sampler(*args, n_steps=steps, ploidy=P, seed=seed,
+                           chain_offset=2 ** 31 - C)

@@ -142,3 +142,30 @@ def test_mutation_sweep_kernel_matches_plain(emulated, P, A):
     np.testing.assert_array_equal(g_k.numpy(), g_p.numpy())
     np.testing.assert_allclose(rh_k.numpy(), rh_p.numpy(), rtol=0, atol=1e-4)
     np.testing.assert_allclose(llk_k.numpy(), llk_p.numpy(), rtol=0, atol=1e-4)
+
+
+def _launch_chains(args, lo, hi, offset, kw):
+    """K1 on chains [lo, hi) of ``args`` alone, keyed from ``offset``."""
+    lr, counts, g0, nall, pbreak, problem = args
+    return K._launch(lr, counts, g0[:, :, lo:hi].contiguous(), nall, pbreak,
+                     problem[lo:hi].contiguous(), chain_offset=offset, **kw)
+
+
+@pytest.mark.parametrize("temps, prior", [(None, False), ([0.5, 1.0], True)])
+def test_chain_offset_keys_philox_by_global_chain(emulated, temps, prior):
+    """A block's chains launched in three uneven pieces, each with its
+    first chain's index as ``chain_offset``, draw what one launch of the
+    whole block draws: traces and llks identical.  At offset 0 a piece
+    replays chain 0's stream instead, and differs."""
+    args = _inputs(4, 8, 2, 64, 8, seed=31, n_distinct=2)
+    kw = dict(n_steps=5, p_recomb=0.5, p_partial=0.5, p_full=1.0, refresh=4, stage=3,
+              seed=(5 << 32) | 0x9E3779B9, noise=None, temps=K.ladder(temps),
+              alpha=torch.tensor([0.05, 0.5]) if prior else None)
+    t_all, l_all = _launch_chains(args, 0, 8, 0, kw)
+    pieces = [_launch_chains(args, lo, hi, lo, kw) for lo, hi in [(0, 3), (3, 6), (6, 8)]]
+    np.testing.assert_array_equal(torch.cat([t for t, _ in pieces], dim=2).numpy(),
+                                  t_all.numpy())
+    np.testing.assert_array_equal(torch.cat([l for _, l in pieces], dim=1).numpy(),
+                                  l_all.numpy())
+    t_zero, _ = _launch_chains(args, 3, 6, 0, kw)
+    assert (t_zero != t_all[:, :, 3:6]).any()

@@ -6,6 +6,9 @@
   preloads jax from hiding or faking the result.
 - The host modules copied from ``mchap_tpu`` equal their originals after
   the package-name substitution.
+- Only ``parallel/distributed.py`` joins a process group, and the
+  kernels and their wrappers (``ops/``) import nothing of the placement
+  layer (``parallel/``).
 """
 
 import ast
@@ -32,6 +35,7 @@ COPIED = [
     "native/records.h",
     "utils/timing.py",
     "application/find_snvs.py", "application/atomize.py",
+    "models/inheritence.py",
 ]
 
 
@@ -58,6 +62,12 @@ def test_import_loads_no_jax_and_no_mchap_tpu():
         "import mchap_tpu_torch.application.find_snvs\n"
         "import mchap_tpu_torch.application.atomize\n"
         "import mchap_tpu_torch.testing\n"
+        "import mchap_tpu_torch.parallel.sharding\n"
+        "import mchap_tpu_torch.parallel.distributed\n"
+        "import mchap_tpu_torch.parallel.pools\n"
+        "import mchap_tpu_torch.parallel.mesh\n"
+        "import mchap_tpu_torch.parallel.launch\n"
+        "import mchap_tpu_torch.models.inheritence\n"
         "added = sorted(set(sys.modules) - before)\n"
         "print(json.dumps(added))\n"
     )
@@ -70,6 +80,7 @@ def test_import_loads_no_jax_and_no_mchap_tpu():
     assert "mchap_tpu_torch.ops.priors" in added
     assert "mchap_tpu_torch.ops.cuda_pedigree" in added
     assert "mchap_tpu_torch.application.find_snvs" in added
+    assert "mchap_tpu_torch.parallel.mesh" in added
     bad = [
         m for m in added
         if m.split(".")[0] in ("jax", "jaxlib", "mchap_tpu")
@@ -92,6 +103,37 @@ def test_port_sources_import_no_jax():
                 )
 
 
+def test_only_distributed_joins_a_process_group():
+    """``init_process_group`` is called in ``parallel/distributed.py`` and
+    nowhere else in the port."""
+    callers = []
+    for path in PORT.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call):
+                f = node.func
+                name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+                if name == "init_process_group":
+                    callers.append(path.relative_to(PORT).as_posix())
+    assert callers and set(callers) == {"parallel/distributed.py"}
+
+
+def test_ops_import_nothing_of_parallel():
+    """The placement layer drives the kernels' wrappers, never the
+    reverse."""
+    bad = []
+    for path in sorted((PORT / "ops").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            if any(n.startswith("mchap_tpu_torch.parallel") for n in names):
+                bad.append(path.relative_to(PORT).as_posix())
+    assert not bad
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_host_copy_in_sync(rel):
     assert (PORT / rel).read_text() == _renamed((JAX_PKG / rel).read_text())
@@ -103,4 +145,13 @@ def test_simulate_reads_in_sync():
 
     assert inspect.getsource(testing.simulate_reads) == _renamed(
         inspect.getsource(jax_testing.simulate_reads)
+    )
+
+
+def test_metropolis_hastings_transitions_in_sync():
+    from mchap_tpu import testing as jax_testing
+    from mchap_tpu_torch import testing
+
+    assert inspect.getsource(testing.metropolis_hastings_transitions) == _renamed(
+        inspect.getsource(jax_testing.metropolis_hastings_transitions)
     )
