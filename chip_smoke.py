@@ -7,7 +7,7 @@ in parallel -- ``denovo_sampler.cu`` twice (K1, the de novo sampler,
 flat with K0, one mutation sweep; and K1 with its tempering ladder and
 prior), ``calling_sampler.cu`` (K2, the calling sampler) and
 ``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) -- and runs
-twenty-six phases, each printing its lines:
+twenty-eight phases, each printing its lines:
 
 A. K1 vs its plain PyTorch version on the card, pinned noise;
 B. K1 with its own Philox stream vs exact enumeration;
@@ -63,9 +63,17 @@ Z. a block's problems over a list of devices (``parallel/``): K1 at
    phase S's shape (flat, and T = 3 with alpha), K2 at phase G's launch
    shape and K3 through the pedigree model at phase M's, each split
    three ways on the one card against the unsharded launch (identical
-   genotypes and llks); ``mchap call`` as phase G in two processes on the
-   card, rank 0 writing phase G's records and rank 1 none; the INFO pools
-   on the card against the host formulas.
+   genotypes and llks); the torch routes the same way (phase W's larger
+   de novo call, a prior ``call``, Metropolis-Hastings ``call-pedigree``);
+   ``mchap call`` as phase G in two processes on the card, rank 0 writing
+   phase G's records and rank 1 none, and a prior ``call`` (the torch
+   route) in two processes, rank 0 writing one process's records; the
+   INFO pools on the card against the host formulas;
+live. each kernel (K1 flat and with 3 rungs and alpha, K0, K2, K3) with
+   its own Philox draws against its plain version drawing the same stream
+   (``utils.philox``) on the card, at a non-zero chain offset;
+stream. the port's Philox (``keyed_uniforms``, and K2's and K3's
+   ``philox_step``) on the card against the CPU, bit for bit.
 
 Each kernel's least time on the card (``bound_ms``) is the largest of
 its f32 operations over 67 TFLOP/s, its f64 operations over 33.5
@@ -1664,22 +1672,28 @@ W_STEPS = ["--mcmc-chains", "6", "--mcmc-steps", "200", "--mcmc-burn", "100"]
 
 
 @contextlib.contextmanager
-def _denovo_sampler_calls():
-    """Record the arguments of every call of the torch de novo sampler
-    made by ``models/assemble.py``."""
-    from mchap_tpu_torch.ops import assemble_mcmc as M
-
-    seen, real = [], M.denovo_sampler
+def _recording(module, name):
+    """Record the (args, kwargs) of every call of ``module.name`` made
+    through the module's global name."""
+    seen, real = [], getattr(module, name)
 
     def spy(*args, **kw):
         seen.append((args, kw))
         return real(*args, **kw)
 
-    M.denovo_sampler = spy
+    setattr(module, name, spy)
     try:
         yield seen
     finally:
-        M.denovo_sampler = real
+        setattr(module, name, real)
+
+
+def _denovo_sampler_calls():
+    """Record the arguments of every call of the torch de novo sampler
+    made by ``models/assemble.py``."""
+    from mchap_tpu_torch.ops import assemble_mcmc as M
+
+    return _recording(M, "denovo_sampler")
 
 
 def _time_torch_sampler(args, kw, cuda_graph, steps):
@@ -1693,12 +1707,10 @@ def _time_torch_sampler(args, kw, cuda_graph, steps):
 
     times, out = [], None
     for n in steps:
-        gen = torch.Generator(device=args[1].device)
-        gen.manual_seed(5)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = M.denovo_sampler(gen, *args[1:], **dict(kw, n_steps=n, burn=0,
-                                                       cuda_graph=cuda_graph))
+        out = M.denovo_sampler(5, *args[1:], **dict(kw, n_steps=n, burn=0,
+                                                     cuda_graph=cuda_graph))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return 1e3 * (times[1] - times[0]) / (steps[1] - steps[0]), out
@@ -1892,11 +1904,14 @@ def phase_w_assemble(device, data):
     torch de novo sampler, in two calls: the 15 biallelic loci's block and
     the 5 triallelic loci's (A = 3).  Then the sampler's ms per step at the
     larger call's shape, eager and through its CUDA graph, with the same
-    draws."""
+    draws.  Returns those times and, under ``route_calls``, the route's
+    calls (``models/assemble._fit_denovo_batch_torch``'s arguments) for
+    phase Z."""
     import torch
 
     from test_torch_fixtures import parse_vcf_records
 
+    from mchap_tpu_torch.models import assemble as MA
     from mchap_tpu_torch.utils import fallback
 
     n_loci = 20
@@ -1908,7 +1923,8 @@ def phase_w_assemble(device, data):
         "--targets", data["targets"], "--variants", data["variants"],
         "--reference", data["reference"], "--use-dirmul-prior", str(path), *W_STEPS,
     ]
-    with _denovo_sampler_calls() as calls:
+    with (_denovo_sampler_calls() as calls,
+          _recording(MA, "_fit_denovo_batch_torch") as route_calls):
         rc, vcf, wall, launches, timers = _run_cli(argv)
     (WORK / "assemble" / "out_mixed_f.vcf").write_text(vcf)
     records = parse_vcf_records(vcf)
@@ -1917,7 +1933,7 @@ def phase_w_assemble(device, data):
     k1 = launches["denovo_sampler"]
     routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
     steps = int(W_STEPS[W_STEPS.index("--mcmc-steps") + 1])
-    alleles = sorted(args[2].shape[-1] for args, _ in calls)
+    alleles = sorted(args[3].shape[-1] for args, _ in calls)
     sampler_s = timers.stages.get("device.torch_sampler", float("nan"))
     print(
         f"phase W: assemble --use-dirmul-prior (F = 0 for {data['samples'][0]}, 0.1"
@@ -1935,10 +1951,10 @@ def phase_w_assemble(device, data):
             or alleles != [2, 3] or total != 440 or frac < 0.90):
         _fail("phase W (assemble)")
 
-    args, kw = max(calls, key=lambda c: c[0][1].numel())
-    S, C, P, NB = args[1].shape
-    shape = dict(S=S, chains=C, P=P, NB=NB, R=args[2].shape[1], A=args[2].shape[-1],
-                 rungs=len(args[6]), prior=kw.get("inbreeding") is not None)
+    args, kw = max(calls, key=lambda c: c[0][2].numel())
+    S, C, P, NB = args[2].shape
+    shape = dict(S=S, chains=C, P=P, NB=NB, R=args[3].shape[1], A=args[3].shape[-1],
+                 rungs=len(args[7]), prior=kw.get("inbreeding") is not None)
     # eager steps take about 0.45 s each, graphed ones about 0.08 s; a
     # step's draws do not depend on the run's length, so the eager trace
     # must equal the graphed one's first steps
@@ -1951,7 +1967,8 @@ def phase_w_assemble(device, data):
     if not same:
         _fail("phase W (graph vs eager)")
     return dict(eager_ms=eager_ms, graph_ms=graph_ms, shape=shape,
-                sampler_ms_per_step=1e3 * sampler_s / steps)
+                sampler_ms_per_step=1e3 * sampler_s / steps, wall=wall,
+                route_calls=route_calls)
 
 
 def phase_x(device, data):
@@ -2055,6 +2072,120 @@ def phase_y(device, data):
     if rc != 0 or rc_a != 0 or not records or bad:
         _fail("phase Y (atomize)")
 
+# live draws: each kernel without pinned noise against its plain version,
+# which draws the kernel's own Philox stream (``utils.philox``)
+LIVE_SEED = (0x2545F491 << 32) | 0x9E3779B9  # both halves of the seed in use
+LIVE_OFFSET = 1000  # as if the launch were a later shard of a larger block
+
+
+def _live_report(name, same, err, moved):
+    print(f"phase live ({name}): kernel vs plain, both drawing the kernel's Philox"
+          f" stream, identical chains {same:.4f}; max |kernel - plain| {err:.3g} (bound 0);"
+          f" chains that moved {moved:.3f}", flush=True)
+    if same < 1.0 or err != 0.0 or not moved > 0:
+        _fail(f"phase live ({name})")
+    return err
+
+
+def phase_live(device, C=512, STEPS=30):
+    """Each kernel with its own Philox draws (``noise=None``) against its
+    plain version with ``noise=None``, which draws the same stream on the
+    card: K1 flat, K1 with 3 rungs and alpha 0.05, K0, K2 and K3 (20
+    steps), 512 chains each, seed ``LIVE_SEED``, chain offset
+    ``LIVE_OFFSET`` (K0's launch has none).  Genotypes must be identical
+    and the llks (K0: also rh; K3 records none) equal, as in the pinned
+    phases.  Returns the largest difference by kernel name."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_calling as KC
+    from mchap_tpu_torch.ops import cuda_denovo as K
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
+
+    out = {}
+    args = _inputs(np.random.default_rng(50), 16, 4, 16, 2, 64, C, device)
+    for label, name, temps, alpha in (
+        ("K1 flat", "denovo_sampler", None, None),
+        ("K1 T=3 alpha 0.05", "denovo_sampler (ladder and prior)", [0.33, 0.66, 1.0],
+         torch.full((16,), 0.05, device=device)),
+    ):
+        kw = dict(n_steps=STEPS, seed=LIVE_SEED, temps=temps, alpha=alpha,
+                  chain_offset=LIVE_OFFSET)
+        t_k, l_k = K.denovo_sampler(*args, **kw)
+        with torch.inference_mode():  # less dispatch work per plain-version op
+            t_p, l_p = K.denovo_sampler_plain(*args, **kw)
+        torch.cuda.synchronize()
+        same = (t_k == t_p).all(dim=0).all(dim=0).float().mean().item()
+        moved = (t_k[1:] != t_k[:-1]).any(dim=0).any(dim=0).float().mean().item()
+        out[name] = _live_report(label, same, (l_k - l_p).abs().max().item(), moved)
+
+    args = _mutation_inputs(np.random.default_rng(51), 4, 16, 2, 64, C, device)
+    g_k, rh_k, l_k = K.mutation_sweep(LIVE_SEED, *args, 0.5)
+    g_p, rh_p, l_p = K.mutation_sweep_plain(LIVE_SEED, *args, 0.5)
+    torch.cuda.synchronize()
+    same = (g_k == g_p).flatten(0, 2).all(dim=0).float().mean().item()
+    err = max((rh_k - rh_p).abs().max().item(), (l_k - l_p).abs().max().item())
+    moved = (g_k != args[3]).flatten(0, 2).any(dim=0).float().mean().item()
+    out["mutation_sweep"] = _live_report("K0", same, err, moved)
+
+    rh, counts, n_valid, prob = _calling_inputs(np.random.default_rng(52), 16, 4, 16, 64,
+                                                C, device)
+    kw = dict(n_steps=STEPS, ploidy=4, seed=LIVE_SEED, chain_offset=LIVE_OFFSET)
+    g_k, l_k = KC.calling_sampler(rh, counts, n_valid, prob, **kw)
+    with torch.inference_mode():
+        g_p, l_p = KC.calling_sampler_plain(rh, counts, n_valid, prob, **kw)
+    torch.cuda.synchronize()
+    same = (g_k == g_p).all(dim=0).all(dim=0).float().mean().item()
+    moved = (g_k[1:] != g_k[:-1]).any(dim=0).any(dim=0).float().mean().item()
+    out["calling_sampler"] = _live_report("K2", same, (l_k - l_p).abs().max().item(), moved)
+
+    rng = np.random.default_rng(53)
+    loci = 8
+    rh, counts, freqs, nv = _pedigree_inputs(rng, BIPARENTAL, loci, device)
+    plan = _pedigree_plan(BIPARENTAL)
+    S, maxp, H = plan.n_samples, plan.max_ploidy, rh.shape[-1]
+    prob = torch.arange(loci, dtype=torch.int32, device=device).repeat_interleave(C // loci)
+    init = torch.from_numpy(rng.integers(0, H, (C, S, maxp)).astype(np.int32)).to(device)
+    args = (rh, counts, freqs, nv, prob, init, plan)
+    kw = dict(n_steps=20, seed=LIVE_SEED, chain_offset=LIVE_OFFSET)
+    t_k = K3.pedigree_sampler(*args, **kw)
+    with torch.inference_mode():
+        t_p = K3.pedigree_sampler_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same = (t_k == t_p).flatten(1).all(dim=1).float().mean().item()
+    err = float((t_k.long() - t_p.long()).abs().max().item())
+    moved = (t_k[:, 1:] != t_k[:, :-1]).flatten(1).any(dim=1).float().mean().item()
+    out["pedigree_sampler"] = _live_report("K3 (alleles)", same, err, moved)
+    return out
+
+
+def phase_stream(device, rows=2048, n=1024):
+    """The port's Philox on the card against the CPU, bit for bit:
+    ``keyed_uniforms`` in f32 and f64 on [2048, 1024] draws, and K2's and
+    K3's host copies of their kernels' streams (``philox_step``)."""
+    import torch
+
+    from mchap_tpu_torch.ops import cuda_calling as KC
+    from mchap_tpu_torch.ops import cuda_pedigree as K3
+    from mchap_tpu_torch.utils.philox import keyed_uniforms
+
+    chains = LIVE_OFFSET + torch.arange(rows)
+    cases = [(f"keyed_uniforms {dtype}".replace("torch.", ""),
+              lambda c, dtype=dtype: keyed_uniforms(LIVE_SEED, c, 7, n, dtype))
+             for dtype in (torch.float32, torch.float64)]
+    cases += [("K2 philox_step", lambda c: KC.philox_step(LIVE_SEED, 7, 4, 33, c)),
+              ("K3 philox_step", lambda c: K3.philox_step(LIVE_SEED, 7, n, c))]
+    ok = True
+    for label, draw in cases:
+        host = draw(chains)
+        card = draw(chains.to(device)).cpu()
+        equal = host.dtype == card.dtype and torch.equal(host, card)
+        print(f"phase stream ({label}, {tuple(host.shape)}): card == CPU bit for bit {equal}",
+              flush=True)
+        ok &= equal
+    if not ok:
+        _fail("phase stream")
+
 
 # phase Z: the problems of a block over a list of devices; one card named
 # three times splits each block three ways (440 problems: 147 + 147 + 146)
@@ -2148,26 +2279,89 @@ def _z_compare(label, run, module, attr, name, device):
     return err
 
 
-def phase_z(device, data, S=LATENCY["S"], K1_STEPS=LATENCY["steps"], K2_STEPS=2000,
-            LOCI=128, K3_STEPS=500):
+def _z_route(label, run, site, device):
+    """``run(devices)`` on one card unsharded and split Z_SHARDS ways,
+    through the torch route of dispatch ``site`` (None: ``run`` calls the
+    route itself, which notes no path); returns the largest llk
+    difference, which must be 0 with identical genotypes (each row's
+    draws are keyed by its index in the whole block)."""
+    from mchap_tpu_torch.utils import fallback
+
+    out = {}
+    for n in (1, Z_SHARDS):
+        fallback.PATHS.clear()
+        t = time.perf_counter()
+        out[n] = run([device] * n)
+        wall = time.perf_counter() - t
+        routes = sorted(path for (where, path) in fallback.PATHS if where == site)
+        print(f"phase Z ({label}, {n} shard{'s' * (n > 1)}): routes {routes or 'torch'};"
+              f" {wall:.2f} s", flush=True)
+        if routes != ([] if site is None else ["torch"]):
+            _fail(f"phase Z ({label}): routes {routes}")
+    err = _same_traces(out[Z_SHARDS], out[1])
+    print(f"phase Z ({label}): {Z_SHARDS} shards vs 1, genotypes identical"
+          f" {err != float('inf')}, max |llk difference| {err:.3g} (bound 0)", flush=True)
+    if err != 0.0:
+        _fail(f"phase Z ({label})")
+    return err
+
+
+def _two_rank_call(argv, prefix, rank_code=None):
+    """``mchap call`` (``argv``) in two processes on the card through the
+    launcher (gloo): returns (exit codes, wall s, rank 0's VCF records,
+    rank 1's output).  ``rank_code`` runs each rank in place of ``python
+    -m mchap_tpu_torch`` (it receives ``prefix`` and ``argv``)."""
+    from mchap_tpu_torch.parallel import launch
+
+    outs = [f"{prefix}{r}.vcf" for r in range(2)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MCHAP_EMIT_ALL_HOSTS", "MCHAP_TIMING")}
+    cmd = (["-m", "mchap_tpu_torch", *argv] if rank_code is None
+           else ["-c", rank_code, str(prefix), *argv])
+    t = time.perf_counter()
+    codes = launch.launch(cmd, 2, stdout=outs, timeout=600, env=env)
+    wall = time.perf_counter() - t
+    return (codes, wall, _records(pathlib.Path(outs[0]).read_text()),
+            pathlib.Path(outs[1]).read_text())
+
+
+def _records(text):
+    """A VCF's lines but its date and command line."""
+    return [line for line in text.splitlines()
+            if not line.startswith(("##fileDate", "##commandline"))]
+
+
+def phase_z(device, data, w_calls, S=LATENCY["S"], K1_STEPS=LATENCY["steps"],
+            K2_STEPS=2000, LOCI=128, K3_STEPS=500, W_Z_STEPS=10, ROUTE_STEPS=100,
+            MH_STEPS=30):
     """A block's problems over a list of devices (``parallel/``): one card
     named three times, so each block splits three ways, against the
     unsharded launch -- K1 at phase S's shape (flat, then phase N's T = 3
     with alpha 0.05), tabulation on; K2 at ``LATENCY_K2`` over 2000 steps;
     K3 through the pedigree model at phase M's 128 loci x 1 chain, 500
-    steps.  Genotypes and llks must be identical (each kernel keys its
-    draws by global chain).  Then ``mchap call`` as phase G in two
-    processes on the card (gloo): rank 0's records must be phase G's
-    byte for byte, rank 1 writes none.  Then the INFO pools on the card
-    against the host formulas."""
+    steps.  Then the torch routes the same way: phase W's larger call
+    (``w_calls``, 330 problems x 6 chains) cut to 10 steps, a
+    Dirichlet-multinomial prior ``call`` at ``LATENCY_K2`` over 100 steps
+    and Metropolis-Hastings ``call-pedigree`` on K3's 128 loci over 30.
+    Genotypes and llks must be identical (every sampler keys its draws
+    by global chain).  Then ``mchap call`` as phase G in two processes on
+    the card (gloo): rank 0's records must be phase G's byte for byte,
+    rank 1 writes none; and a prior ``call`` on a 6-sample x 4-locus
+    dataset (the torch route) in two processes, rank 0's records those of
+    one process.  Then the INFO pools on the card against the host
+    formulas."""
+    import inspect
+
     import numpy as np
     import torch
 
     from mchap_tpu_torch.models import assemble as MA
     from mchap_tpu_torch.models import calling as MC
     from mchap_tpu_torch.models import pedigree as MP
-    from mchap_tpu_torch.parallel import launch, pools
+    from mchap_tpu_torch.parallel import pools
     from mchap_tpu_torch.testing import simulate_reads
+    from mchap_tpu_torch.utils import fallback
+    from test_torch_fixtures import write_dataset, write_haplotype_vcf
 
     cpu = torch.device("cpu")
     errs = {}
@@ -2226,27 +2420,41 @@ def phase_z(device, data, S=LATENCY["S"], K1_STEPS=LATENCY["steps"], K2_STEPS=20
     errs["pedigree_sampler"] = _z_compare("K3", k3, MP._k3, "_launch", "pedigree_sampler",
                                           device)
 
+    # the torch routes: phase W's larger de novo call, a prior `call` at
+    # phase G's launch shape, Metropolis-Hastings `call-pedigree`
+    args, kw = max(w_calls, key=lambda c: c[0][0].shape[0])
+    w_args = inspect.signature(MA._fit_denovo_batch_torch).bind(*args, **kw).arguments
+    errs["torch de novo"] = _z_route(
+        f"torch de novo, phase W's {w_args['reads'].shape[0]} problems x"
+        f" {w_args['chains']} chains, {W_Z_STEPS} steps",
+        lambda devices: MA._fit_denovo_batch_torch(**dict(
+            w_args, steps=W_Z_STEPS, burn=W_Z_STEPS // 2, devices=devices)),
+        None, device)
+    H = shape["H"]
+    errs["torch calling"] = _z_route(
+        f"torch calling, DM prior, {S} problems x {shape['chains']} chains", lambda devices:
+        MC._fit_batch_torch(rh, counts2, shape["P"], ROUTE_STEPS, shape["chains"], 13, 0,
+                            inbreeding=np.full(S, 0.1), frequencies=np.full(H, 1.0 / H),
+                            n_valid=n_valid, burn=ROUTE_STEPS // 2, device=device,
+                            devices=devices),
+        "calling", device)
+
+    def mh(devices):
+        trace, _ = MP._fit(problems, *design, MH_STEPS, 1, 7, "Metropolis-Hastings", True, 0,
+                           device, devices=devices)
+        return [types.SimpleNamespace(genotypes=t, llks=np.zeros(1)) for t in trace]
+
+    errs["torch pedigree"] = _z_route(f"torch pedigree, MH, {LOCI} loci", mh, "pedigree",
+                                      device)
+
     # `mchap call` in two processes on the one card
     argv = ["call", "--bam", *data["bams"], "--ploidy", "4", "--haplotypes",
             str(data["assembled"]), "--reference", data["reference"], "--device", device.type]
     prefix = WORK / "assemble" / "call_rank"
-    outs = [f"{prefix}{r}.vcf" for r in range(2)]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("MCHAP_EMIT_ALL_HOSTS", "MCHAP_TIMING")}
-    t = time.perf_counter()
-    codes = launch.launch(["-c", _Z_RANK, str(prefix), *argv], 2, stdout=outs, timeout=600,
-                          env=env)
-    wall = time.perf_counter() - t
+    codes, wall, rank0, rank1 = _two_rank_call(argv, prefix, _Z_RANK)
     info = [] if any(codes) else [json.loads(pathlib.Path(f"{prefix}{r}.json").read_text())
                                   for r in range(2)]
-
-    def records(text):
-        return [line for line in text.splitlines()
-                if not line.startswith(("##fileDate", "##commandline"))]
-
-    rank0 = records(pathlib.Path(outs[0]).read_text())
-    same = rank0 == records((WORK / "assemble" / "call.vcf").read_text())
-    rank1 = pathlib.Path(outs[1]).read_text()
+    same = rank0 == _records((WORK / "assemble" / "call.vcf").read_text())
     for i in info:
         print(f"phase Z (call, rank {i['rank']} of 2): exit {i['rc']}, wall {i['wall']:.2f} s,"
               f" K2 launches {i['launches']}: {json.dumps(i['shapes'])}", flush=True)
@@ -2255,6 +2463,23 @@ def phase_z(device, data, S=LATENCY["S"], K1_STEPS=LATENCY["steps"], K2_STEPS=20
           f" phase G's {same}; rank 1 wrote {len(rank1)} bytes", flush=True)
     if any(codes) or not same or rank1 or [i["rank"] for i in info] != [0, 1]:
         _fail("phase Z (two-rank call)")
+
+    # a prior `call`, the torch route, in one process and in two
+    small = write_dataset(WORK / "prior_call", n_samples=6, n_loci=4, seed=11)
+    panel = write_haplotype_vcf(WORK / "prior_call" / "panel.vcf", small, frequency_tag="AFP")
+    argv = ["call", "--bam", *small["bams"], "--ploidy", "4", "--haplotypes", panel,
+            "--reference", small["reference"], "--use-dirmul-prior", "0.1", "AFP",
+            "--mcmc-steps", "400", "--mcmc-burn", "100", "--device", device.type]
+    rc, one, one_wall, _, _ = _run_cli(["mchap", *argv])
+    routes = sorted(path for (site, path) in fallback.PATHS if site == "calling")
+    codes, two_wall, rank0, rank1 = _two_rank_call(argv, WORK / "prior_call" / "rank")
+    same = rank0 == _records(one)
+    n_records = sum(not x.startswith("#") for x in rank0)
+    print(f"phase Z (prior call, torch route {routes}): one process exit {rc}, {one_wall:.2f}"
+          f" s; 2 ranks exit codes {codes}, {two_wall:.2f} s; rank 0 {n_records} records,"
+          f" identical to one process's {same}; rank 1 wrote {len(rank1)} bytes", flush=True)
+    if rc or any(codes) or routes != ["torch"] or not same or n_records != 4 or rank1:
+        _fail("phase Z (two-rank prior call)")
 
     # INFO pools on the card
     rng = np.random.default_rng(0)
@@ -2370,7 +2595,9 @@ def main():
                        phase_w_assemble(device, results["C"][1]))[-1]),
         ("X", lambda: phase_x(device, results["C"][1])),
         ("Y", lambda: phase_y(device, results["C"][1])),
-        ("Z", lambda: phase_z(device, results["C"][1])),
+        ("Z", lambda: phase_z(device, results["C"][1], results["W"]["route_calls"])),
+        ("live", lambda: phase_live(device)),
+        ("stream", lambda: phase_stream(device)),
     ]
     for name, run in runners:
         t = time.perf_counter()
@@ -2416,6 +2643,7 @@ def main():
             k["sharded_max_abs_err"] = z[k["name"]]
             k["shard_counts"] = [1, Z_SHARDS]
     for k in kernels:
+        k["live_max_abs_err"] = results["live"][k["name"]]
         k["route"] = "cuda"
         k["library_ms"] = None  # no single PyTorch call computes a sampler step
     print(f"time: total {time.perf_counter() - t0:.1f} s, build included", flush=True)

@@ -45,7 +45,6 @@ from mchap_tpu_torch.parallel.sharding import run_sharded
 from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.device import resolve_device
-from mchap_tpu_torch.utils.seeds import shard_seed
 
 
 def _point_beta_probabilities(n_base, a=1, b=1):
@@ -360,11 +359,11 @@ def _fit_denovo_batch_torch(
     ``inbreeding`` [S] the prior's (None: no prior).  Het positions are
     compacted first (``_compact_het``); the break-count distribution is
     cut to the kept width, with the mass of larger counts on the largest.
-    The problems are spread over ``devices`` (``parallel.sharding``), each
-    shard drawing from its own generator seeded with ``shard_seed(seed,
-    first problem)`` (reproducible for its placement; each splits its
-    rows against its own device's memory, ``rows_per_chunk``).  The
-    burn-in is dropped on the device.  Returns one untabulated trace of
+    The problems are spread over ``devices`` (``parallel.sharding``); each
+    (problem, chain, rung) row draws from the stream keyed by the seed and
+    its index in the whole block, so placement changes no result (each
+    shard splits its rows against its own device's memory,
+    ``rows_per_chunk``).  The burn-in is dropped on the device.  Returns one untabulated trace of
     the kept steps per problem.
     """
     log_reads = prepare_reads(reads).numpy()
@@ -388,10 +387,9 @@ def _fit_denovo_batch_torch(
         arrays.append(_host(inbreeding, torch.float64))
 
     def launch(sh):
-        generator = torch.Generator(device=sh.device)
-        generator.manual_seed(shard_seed(seed, sh.start))
         return _sampler.denovo_sampler(
-            generator, *sh.arrays[:5], temperatures, n_steps=steps, burn=burn,
+            seed, sh.start * chains * len(temperatures), *sh.arrays[:5], temperatures,
+            n_steps=steps, burn=burn,
             inbreeding=sh.arrays[5] if inbreeding is not None else None,
             recombination_step_probability=p_recomb,
             partial_dosage_step_probability=p_partial,

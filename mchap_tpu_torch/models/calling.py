@@ -31,11 +31,10 @@ from mchap_tpu_torch.ops.cuda_calling import (
     k2_unsupported_reason,
 )
 from mchap_tpu_torch.ops.likelihood import MIN_LOG, prepare_reads, read_hap_loglik
-from mchap_tpu_torch.parallel.sharding import run_sharded
+from mchap_tpu_torch.parallel.sharding import problem_devices, run_sharded
 from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.device import resolve_device
-from mchap_tpu_torch.utils.seeds import shard_seed
 
 _STEP_TYPES = {"Gibbs": 0, "Metropolis-Hastings": 1}
 
@@ -106,11 +105,14 @@ def _fit_batch_torch(read_hap, counts, ploidy, steps, chains, seed, step_type,
                      device, initial=None, devices="auto"):
     """Run all problems x chains through the batched torch sampler.
 
-    Initial genotypes are the greedy caller's unless ``initial``
-    ([S, chains, ploidy]) is given.  The problems are spread over
-    ``devices`` (``parallel.sharding``), each shard drawing from its own
-    generator seeded with ``shard_seed(seed, first problem)``: a run is
-    reproducible for its placement.  Returns one trace per problem.
+    Initial genotypes are the greedy caller's, computed once for the
+    whole block on the first device (a CUDA matmul's sums depend on its
+    batch size, so per-shard greedy calls could start a near-tied problem
+    elsewhere), unless ``initial`` ([S, chains, ploidy]) is given.  The
+    problems are spread over ``devices`` (``parallel.sharding``); chain c
+    of problem i draws from the stream keyed by the seed and its index i
+    * chains + c in the whole block, so placement changes no result.
+    Returns one trace per problem.
     """
     rh = torch.as_tensor(read_hap, dtype=torch.float64).contiguous()
     S, _, H = rh.shape
@@ -129,25 +131,23 @@ def _fit_batch_torch(read_hap, counts, ploidy, steps, chains, seed, step_type,
         )
     if n_valid is not None:
         arrays["nv"] = torch.as_tensor(np.asarray(n_valid))
-    if initial is not None:
-        arrays["initial"] = torch.as_tensor(np.ascontiguousarray(initial))
+    if initial is None:
+        on = {k: v.to((problem_devices(S, devices, device) or [device])[0])
+              for k, v in arrays.items()}
+        greedy = _mcmc.greedy_caller(
+            on["rh"], on["counts"], ploidy=ploidy, prior_kind=prior_kind,
+            inbreeding=on["inbreeding"], frequencies=on.get("freqs"), n_valid=on.get("nv"),
+        ).cpu()
+        initial = greedy[:, None, :].expand(S, chains, ploidy)
+    arrays["initial"] = torch.as_tensor(np.ascontiguousarray(initial))
     n_alleles = [H] * S if n_valid is None else [int(n) for n in n_valid]
 
     def launch(sh):
         x = dict(zip(arrays, sh.arrays))
-        freqs, nv = x.get("freqs"), x.get("nv")
-        init = x.get("initial")
-        if init is None:
-            init = _mcmc.greedy_caller(
-                x["rh"], x["counts"], ploidy=ploidy, prior_kind=prior_kind,
-                inbreeding=x["inbreeding"], frequencies=freqs, n_valid=nv,
-            )[:, None, :].expand(sh.stop - sh.start, chains, ploidy)
-        gen = torch.Generator(device=sh.device)
-        gen.manual_seed(shard_seed(seed, sh.start))
         return _mcmc.calling_sampler(
-            gen, init, x["rh"], x["counts"], n_steps=steps, step_type=step_type,
-            prior_kind=prior_kind, inbreeding=x["inbreeding"], frequencies=freqs,
-            n_valid=nv,
+            seed, sh.start * chains, x["initial"], x["rh"], x["counts"], n_steps=steps,
+            step_type=step_type, prior_kind=prior_kind, inbreeding=x["inbreeding"],
+            frequencies=x.get("freqs"), n_valid=x.get("nv"),
         )
 
     def fetch(sh, run):

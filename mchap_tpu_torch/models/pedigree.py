@@ -31,7 +31,6 @@ from mchap_tpu_torch.parallel.sharding import problem_devices, run_sharded
 from mchap_tpu_torch.utils import fallback as _fallback
 from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.device import resolve_device
-from mchap_tpu_torch.utils.seeds import shard_seed
 
 # reference pedigree/classes.py:54-59
 _STEP_TYPES = {"Gibbs": 0, "Metropolis-Hastings": 1}
@@ -103,9 +102,9 @@ def _fit(problems, sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
     shard at the block's plan, H and read bucket, from greedy initial
     genotypes computed for the whole block on the first device (a CUDA matmul's
     sums depend on its batch size, so per-shard greedy calls could start
-    a near-tied sample elsewhere): K3 keys its draws by global chain, so
-    placement changes no result; the torch sampler's shards draw from
-    generators seeded with ``shard_seed(seed, first locus)``.
+    a near-tied sample elsewhere).  K3 and the torch sampler both key
+    their draws by the seed and each chain's index in the whole block, so
+    placement changes no result.
     ``pinned_noise`` (a float) replaces every uniform draw of K3 (tests).
     """
     if step_type not in _STEP_TYPES:
@@ -154,10 +153,8 @@ def _fit(problems, sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
             )
         ped = _kernel.Pedigree(sample_ploidy, sample_parents, gamete_tau,
                                gamete_lambda, gamete_error, sh.device)
-        gen = torch.Generator(device=sh.device)
-        gen.manual_seed(shard_seed(seed, sh.start))
         return _kernel.pedigree_sampler(
-            gen, init, rh, counts, log_freqs, n_valid, problem, ped,
+            seed, sh.start * chains, init, rh, counts, log_freqs, n_valid, problem, ped,
             n_steps=steps, step_type=_STEP_TYPES[step_type],
             swap_parental_alleles=swap_parental_alleles,
         )

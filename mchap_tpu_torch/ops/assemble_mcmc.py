@@ -21,10 +21,15 @@ index tensors.  The state, as in the JAX sampler:
 - ``llk`` f64 [B].
 
 Positions with ``n_alleles == 1`` (homozygote-fixed or padding) take no
-move in any sub-step.  Every draw of a step comes from one ``torch.rand``
-call on an explicit generator; the stream is not JAX's, so the sampler
-is held to the same posteriors, not the same draws.  The sub-steps take
-their draws as arguments, so tests can feed them JAX's.
+move in any sub-step.  Every draw of a step comes from one
+``utils.philox.keyed_uniforms`` call, keyed by the seed and each row's
+index in the whole block, so how a block is split over devices and
+processes changes no draw; and every read sum is an elementwise product
+and a sum, not a batched matmul, whose sums on a card depend on its
+batch size, so a row's llks do not depend on its shard either.  The
+stream is not JAX's, so the sampler is held to the same posteriors, not
+the same draws.  The sub-steps take their draws as arguments, so tests
+can feed them JAX's.
 
 The per-position homozygosity screen that runs before sampling (reference
 assemble/mcmc.py:168-199 and snpcalling.py:14-70) is host code here (a
@@ -47,6 +52,7 @@ from mchap_tpu_torch.numerics.combinadics import (
 from mchap_tpu_torch.ops.exact import genotype_dosage_table
 from mchap_tpu_torch.ops.priors import log_genotype_prior, log_genotype_prior_dosage
 from mchap_tpu_torch.utils.device import memory_budget
+from mchap_tpu_torch.utils.philox import keyed_uniforms
 
 _NEG = -1e300
 _F64 = torch.float64
@@ -267,7 +273,7 @@ def initial_state(lr_t, problem, counts_b, genotype, max_rows=None):
 def _initial_state(lr_t, problem, counts_b, genotype):
     log_p = math.log(genotype.shape[1])
     rh = _rows_log_reads(lr_t, problem, genotype)
-    llk = torch.einsum("br,br->b", counts_b, torch.logsumexp(rh, dim=-1) - log_p)
+    llk = (counts_b * (torch.logsumexp(rh, dim=-1) - log_p)).sum(-1)
     return rh, llk
 
 
@@ -305,7 +311,7 @@ def mutation_sweep(genotype, rh, llk, lr_t, problem, counts_b, n_alleles_b,
         keep = ar_p[None, :] != h[:, None]  # [B, p]
         rest = torch.logsumexp(torch.where(keep[:, None, :], rh, _NEG), dim=-1)
         cand = torch.logaddexp(rest[..., None], base[..., None] + lr_j)
-        llks_a = torch.einsum("br,bra->ba", counts_b, cand - log_p)
+        llks_a = (counts_b[:, :, None] * (cand - log_p)).sum(1)
 
         # proposal ratio from haplotype copy counts (mutation.py:84-139)
         row = genotype[bi, h]  # [B, nb]
@@ -399,7 +405,7 @@ def _interval_step(genotype, rh, llk, mask, lr_t, problem, counts_b, log_uh,
         rh_int[:, None].expand(B, K, R, p), 3, srcs[:, :, None, :].expand(B, K, R, p)
     )
     read_log = torch.logsumexp(rh_out[:, None] + moved, dim=-1) - log_p  # [B, K, R]
-    llk_opts = torch.einsum("bkr,br->bk", read_log, counts_b)
+    llk_opts = (read_log * counts_b[:, None, :]).sum(-1)
 
     score = llk_opts - llk[:, None]
     if inbreeding is not None:
@@ -519,7 +525,8 @@ def step_draw_offsets(ploidy, n_base):
 
 
 def denovo_sampler(
-    generator,
+    seed,
+    row_offset,
     initial,
     log_reads,
     read_counts,
@@ -539,7 +546,10 @@ def denovo_sampler(
 
     Parameters
     ----------
-    generator : torch.Generator on that device, the source of every draw
+    seed : the draws' seed; row_offset : the global index of this call's
+        row 0 in the whole block.  Draw j of a step for row b (rows
+        ordered (problem, chain, rung)) is ``keyed_uniforms`` draw j of
+        row row_offset + b, in the layout of ``step_draw_offsets``
     initial : int[S, C, ploidy, nb] initial genotypes of C chains per problem
     log_reads : f64[S, R, nb, A] log read probabilities (gaps 0, zeros
         clamped to ``ops.likelihood.MIN_LOG``)
@@ -598,6 +608,7 @@ def denovo_sampler(
         )
 
     u = torch.empty((B, D), dtype=_F64, device=dev)
+    rows = row_offset + torch.arange(B, device=dev)
 
     def run_step():
         """One compound step of every rung from the draws in ``u``, its
@@ -636,7 +647,8 @@ def denovo_sampler(
         cuda_graph = dev.type == "cuda"
     graph = None
     for step in range(n_steps):
-        torch.rand((B, D), generator=generator, dtype=_F64, device=dev, out=u)
+        # outside the graph: a capture would replay its step's draws
+        keyed_uniforms(seed, rows, step, D, _F64, out=u)
         if graph is not None:
             graph.replay()
         elif cuda_graph:

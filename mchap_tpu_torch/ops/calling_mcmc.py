@@ -8,9 +8,13 @@ over [R, H] and a weighted sum over reads.
 
 This is the sampler for ``--use-dirmul-prior`` and for
 ``CallingMCMC(step_type="Metropolis-Hastings")``.  Flat-prior Gibbs runs
-through K2 (``ops/cuda_calling.py``) instead.  Random draws come from an
-explicit ``torch.Generator``; the stream differs from JAX's, so results
-are held to the same posteriors, not the same draws.
+through K2 (``ops/cuda_calling.py``) instead.  A step's draws come from
+one ``utils.philox.keyed_uniforms`` call, keyed by the seed and each
+chain's index in the whole block (``step_draw_offsets``), so how a block
+is split over devices and processes changes no draw; a candidate's llk is
+an elementwise product and a sum over reads, not a batched matmul, whose
+sums on a card depend on its batch size.  The stream differs from JAX's,
+so results are held to the same posteriors, not the same draws.
 
 Shapes: read_hap f64[S, R, H], read_counts [S, R], inbreeding [S],
 frequencies [S, H] or None, n_valid [S] or None (columns >= n_valid[s]
@@ -26,6 +30,7 @@ from mchap_tpu_torch.ops.priors import (
     log_genotype_allele_prior,
     log_genotype_prior,
 )
+from mchap_tpu_torch.utils.philox import keyed_uniforms
 
 _NEG = -1e300  # effectively -inf in f64 logits without nan-propagation risk
 
@@ -48,7 +53,7 @@ def _option_llks(read_hap, read_counts, genotype, slot, log_ploidy):
     keep = torch.arange(ploidy, device=slot.device)[None, :] != slot[:, None]
     rest = torch.logsumexp(torch.where(keep[:, None, :], sub, _NEG), dim=-1)
     read_log = torch.logaddexp(rest[..., None], read_hap) - log_ploidy
-    return torch.einsum("br,brh->bh", read_counts, read_log)
+    return (read_counts[:, :, None] * read_log).sum(1)
 
 
 def _option_genotypes(genotype, slot, n_alleles):
@@ -63,7 +68,7 @@ def _option_genotypes(genotype, slot, n_alleles):
     return options
 
 
-def _gibbs_slot(gen, genotype, slot, read_hap, read_counts, log_ploidy,
+def _gibbs_slot(u, genotype, slot, read_hap, read_counts, log_ploidy,
                 prior_kind, inbreeding, frequencies, valid):
     n_alleles = read_hap.shape[-1]
     llks = _option_llks(read_hap, read_counts, genotype, slot, log_ploidy)
@@ -78,17 +83,16 @@ def _gibbs_slot(gen, genotype, slot, read_hap, read_counts, log_ploidy,
     logits = llks + lpriors
     if valid is not None:
         logits = torch.where(valid, logits, _NEG)
-    # categorical draw by Gumbel-max
-    u = torch.rand(logits.shape, generator=gen, dtype=logits.dtype,
-                   device=logits.device).clamp_(min=1e-300)
+    # categorical draw by Gumbel-max; u [B, H]
     choice = torch.argmax(logits - torch.log(-torch.log(u)), dim=1)
     genotype = genotype.scatter(1, slot[:, None], choice[:, None])
     return genotype, llks.gather(1, choice[:, None])[:, 0]
 
 
-def _mh_slot(gen, genotype, slot, read_hap, read_counts, log_ploidy,
+def _mh_slot(u, genotype, slot, read_hap, read_counts, log_ploidy,
              prior_kind, inbreeding, frequencies, valid):
-    """Metropolis-Hastings slot update; reference calling/mcmc.py:15-140."""
+    """Metropolis-Hastings slot update, ``u`` [B, 1] its draw; reference
+    calling/mcmc.py:15-140."""
     B, ploidy = genotype.shape
     n_alleles = read_hap.shape[-1]
     llks = _option_llks(read_hap, read_counts, genotype, slot, log_ploidy)
@@ -126,18 +130,28 @@ def _mh_slot(gen, genotype, slot, read_hap, read_counts, log_ploidy,
     probs = probs.scatter(1, current, 1.0 - probs.sum(dim=1, keepdim=True))
     # inverse-CDF draw matching reference random_choice semantics
     cdf = torch.cumsum(probs, dim=1)
-    u = torch.rand((B, 1), generator=gen, dtype=cdf.dtype, device=cdf.device)
     choice = (cdf <= u * cdf[:, -1:]).sum(dim=1)
     genotype = genotype.scatter(1, slot[:, None], choice[:, None])
     return genotype, llks.gather(1, choice[:, None])[:, 0]
 
 
-def calling_sampler(gen, initial, read_hap, read_counts, *, n_steps,
+def step_draw_offsets(ploidy, n_alleles, step_type):
+    """Offsets of a chain's draws in one step and their count ``D``: the
+    slot order's ``ploidy`` draws at 0, then each visited slot's, H for a
+    Gibbs slot, 1 for a Metropolis-Hastings slot, in visiting order."""
+    per_slot = n_alleles if step_type == 0 else 1
+    return dict(slots=ploidy, per_slot=per_slot, D=ploidy * (1 + per_slot))
+
+
+def calling_sampler(seed, row_offset, initial, read_hap, read_counts, *, n_steps,
                     step_type=0, prior_kind=0, inbreeding=0.0,
                     frequencies=None, n_valid=None):
     """Run batched-chain MCMC over allele-index genotypes.
 
-    gen : torch.Generator on read_hap's device
+    seed : the draws' seed; row_offset : the global index of this call's
+        first chain in the whole block.  Chain b (ordered (problem,
+        chain)) draws ``keyed_uniforms`` row row_offset + b, in the
+        layout of ``step_draw_offsets``
     initial : int[S, n_chains, ploidy]
     read_hap : f64[S, R, H]; read_counts : [S, R]
     step_type : 0 = Gibbs, 1 = Metropolis-Hastings
@@ -169,18 +183,21 @@ def calling_sampler(gen, initial, read_hap, read_counts, *, n_steps,
         valid = _valid_columns(n_valid[problem], n_alleles, device)
     log_ploidy = math.log(ploidy)
     slot_fn = _gibbs_slot if step_type == 0 else _mh_slot
+    lay = step_draw_offsets(ploidy, n_alleles, step_type)
+    rows = row_offset + torch.arange(B, device=device)
 
     g = initial.reshape(B, ploidy).long().to(device)
     genotypes = torch.empty((n_steps, B, ploidy), dtype=torch.long, device=device)
     llks = torch.empty((n_steps, B), dtype=rh.dtype, device=device)
     for step in range(n_steps):
-        order = torch.argsort(
-            torch.rand((B, ploidy), generator=gen, device=device), dim=1
-        )
+        u = keyed_uniforms(seed, rows, step, lay["D"], torch.float64)
+        order = torch.argsort(u[:, :ploidy], dim=1)
+        w = lay["per_slot"]
         for t in range(ploidy):
+            start = lay["slots"] + t * w
             g, llk = slot_fn(
-                gen, g, order[:, t], rh, counts, log_ploidy, prior_kind,
-                inbreeding, frequencies, valid,
+                u[:, start:start + w], g, order[:, t], rh, counts, log_ploidy,
+                prior_kind, inbreeding, frequencies, valid,
             )
         g = torch.sort(g, dim=1).values
         genotypes[step] = g

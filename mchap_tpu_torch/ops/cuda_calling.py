@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from mchap_tpu_torch.ops import nvcc_build
-from mchap_tpu_torch.utils.seeds import shard_seed
+from mchap_tpu_torch.utils.philox import philox4x32_10, split_seed, uniform_f32
 
 _NAME = "calling_sampler"
 _WARPS_PER_BLOCK = 4
@@ -109,10 +109,10 @@ def calling_sampler(rh, counts, n_valid, problem, *, n_steps, ploidy, seed=0,
     On CUDA tensors this launches the kernel (and raises if it cannot);
     on CPU tensors it runs ``calling_sampler_plain``.  ``noise``
     f32[n_steps, P, H, C] pins every uniform draw (tests); otherwise draws
-    come from Philox4x32-10 keyed by (seed, chain_offset + chain) on CUDA
-    and from a ``torch.Generator`` seeded with ``shard_seed(seed,
-    chain_offset)`` on the CPU.  ``chain_offset`` is chain 0's index in
-    the whole block when the block is split over launches
+    come from Philox4x32-10 keyed by (seed, chain_offset + chain), drawn
+    by the kernel on CUDA and by ``philox_step`` on the CPU, so both give
+    one chain the same draws.  ``chain_offset`` is chain 0's index in the
+    whole block when the block is split over launches
     (``parallel.sharding``).
     """
     _check_inputs(rh, counts, n_valid, problem, noise, n_steps, ploidy)
@@ -123,45 +123,37 @@ def calling_sampler(rh, counts, n_valid, problem, *, n_steps, ploidy, seed=0,
         return _launch(rh, counts, n_valid, problem, chain_offset=chain_offset, **kwargs)
     if rh.device.type != "cpu":
         raise ValueError(f"unsupported device {rh.device}")
-    kwargs["seed"] = shard_seed(seed, chain_offset)
-    return calling_sampler_plain(rh, counts, n_valid, problem, **kwargs)
+    return calling_sampler_plain(rh, counts, n_valid, problem, chain_offset=chain_offset,
+                                 **kwargs)
 
 
 #: kernel launches made through ``calling_sampler`` (CUDA tensors only)
 calling_sampler.launches = 0
 
 
-def _philox4x32_10(ctr, key):
-    """Philox4x32-10 on uint64 arrays holding 32-bit words: counters
-    (c0, c1, c2, c3) and keys (k0, k1), broadcast together."""
-    mask = np.uint64(0xFFFFFFFF)
-    c0, c1, c2, c3 = (np.asarray(x, np.uint64) for x in ctr)
-    k0, k1 = (np.asarray(x, np.uint64) for x in key)
-    for _ in range(10):
-        p0 = c0 * np.uint64(0xD2511F53)  # < 2**64: exact
-        p1 = c2 * np.uint64(0xCD9E8D57)
-        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ k0, p1 & mask,
-                          (p0 >> np.uint64(32)) ^ c3 ^ k1, p0 & mask)
-        k0 = (k0 + np.uint64(0x9E3779B9)) & mask
-        k1 = (k1 + np.uint64(0xBB67AE85)) & mask
-    return c0, c1, c2, c3
+def philox_step(seed, step, ploidy, H, chains):
+    """The uniforms the kernel draws in step ``step`` from its own Philox
+    stream when no ``noise`` is given: f32[P, H, len(chains)].  Draw
+    (slot, h) of chain c is word h % 4 of Philox4x32-10 with key (low 32
+    bits of seed, c) and counter (step, slot, h // 4, high 32 bits of
+    seed), made a uniform by ``utils.philox.uniform_f32``.  ``chains``
+    holds the chains' int64 indices in the whole block."""
+    seed_lo, seed_hi = split_seed(seed)
+    nq = (H + 3) // 4
+    k = torch.arange(ploidy, device=chains.device)[:, None, None]
+    q = torch.arange(nq, device=chains.device)[None, :, None]
+    words = philox4x32_10(int(step), k, q, seed_hi, seed_lo, chains.long()[None, None, :])
+    bits = torch.stack(words, dim=2).reshape(ploidy, 4 * nq, -1)[:, :H]
+    return uniform_f32(bits)
 
 
 def philox_noise(seed, n_steps, ploidy, H, C, chain_offset=0):
-    """The uniforms the kernel draws from its own Philox stream when no
-    ``noise`` is given, made on the host: f32[n_steps, P, H, C].  Draw
-    (step, slot, h) of chain c is word h % 4 of the call with key (low 32
-    bits of seed, chain_offset + c) and counter (step, slot, h // 4, high
-    32 bits of seed), its top 23 bits over 2**23, at least 1e-12.  Passed
-    as ``noise``, it holds the kernel's Philox path to the plain version."""
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    nq = (H + 3) // 4
-    t, k, q, c = np.ix_(np.arange(n_steps), np.arange(ploidy), np.arange(nq),
-                        chain_offset + np.arange(C))
-    words = _philox4x32_10((t, k, q, seed >> 32), (seed & 0xFFFFFFFF, c))
-    bits = np.stack(words, axis=3).reshape(n_steps, ploidy, 4 * nq, C)[:, :, :H]
-    u = (bits >> np.uint64(9)).astype(np.float32) * np.float32(1.0 / 8388608.0)
-    return torch.from_numpy(np.maximum(u, np.float32(1e-12)))
+    """Every step's ``philox_step`` for chains chain_offset ..
+    chain_offset + C - 1, made on the host: f32[n_steps, P, H, C].
+    Passed as ``noise``, it holds the kernel's Philox path to the plain
+    version."""
+    chains = chain_offset + torch.arange(C)
+    return torch.stack([philox_step(seed, t, ploidy, H, chains) for t in range(n_steps)])
 
 
 # ---------------------------------------------------------------------------
@@ -266,10 +258,12 @@ def _grouped_sum(terms, G):
 
 
 def calling_sampler_plain(rh, counts, n_valid, problem, *, n_steps, ploidy,
-                          seed=0, noise=None):
+                          seed=0, noise=None, chain_offset=0):
     """The kernel's Markov chain in vectorised torch (reference version),
     each candidate's llk summed in the kernel's order (``_grouped_sum``
-    with its chain's ``read_groups``)."""
+    with its chain's ``read_groups``).  Without ``noise`` it draws the
+    kernel's own Philox stream (``philox_step``) for chains chain_offset
+    + c."""
     S, R, H, C = _check_inputs(rh, counts, n_valid, problem, noise, n_steps, ploidy)
     P = ploidy
     device = rh.device
@@ -283,16 +277,14 @@ def calling_sampler_plain(rh, counts, n_valid, problem, *, n_steps, ploidy,
     groups = torch.tensor([read_groups(int(v)) for v in n_valid.tolist()])[prob.cpu()]
     chains_of = {int(G): torch.nonzero(groups == G)[:, 0].to(device)
                  for G in groups.unique()}
-    gen = None
-    if noise is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
+    chains = chain_offset + torch.arange(C, device=device)
 
     g = torch.zeros((C, P), dtype=torch.long, device=device)
     es = ec[:, :, 0][:, None, :].repeat(1, P, 1)  # [C, P, R]
     alleles = torch.empty((n_steps, P, C), dtype=allele_dtype(H), device=device)
     llks = torch.empty((n_steps, C), dtype=torch.float32, device=device)
     for step in range(n_steps):
+        u_step = noise[step] if noise is not None else philox_step(seed, step, P, H, chains)
         for k in range(P):
             others = [i for i in range(P) if i != k]
             srest = torch.zeros((C, R), dtype=torch.float32, device=device)
@@ -310,10 +302,7 @@ def calling_sampler_plain(rh, counts, n_valid, problem, *, n_steps, ploidy,
             for i in others:
                 copies = copies + (g[:, i, None] == alleles_h).float()
             logit = l + torch.log1p(copies)
-            if noise is not None:
-                u = noise[step, k].T
-            else:
-                u = torch.rand((C, H), generator=gen, device=device).clamp_(min=1e-12)
+            u = u_step[k].T
             score = torch.where(validc, logit - torch.log(-torch.log(u)), -math.inf)
             choice = torch.argmax(score, dim=1)  # ties: the lowest allele
             g[:, k] = choice

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from mchap_tpu_torch.ops import nvcc_build
-from mchap_tpu_torch.utils.seeds import shard_seed
+from mchap_tpu_torch.utils.philox import keyed_uniforms
 
 NEG_BIG = -1e30
 MAX_TEMPS = 8
@@ -244,10 +244,11 @@ def denovo_sampler(lr, counts, g_init, nall, pbreak, problem, *, n_steps,
     on CPU tensors it runs ``denovo_sampler_plain``.  ``noise``
     f32[n_steps, D, C] (``draw_layout(P, NB, T)["D"]``) pins every
     uniform draw (tests); otherwise draws come from Philox4x32-10 keyed
-    by (seed, chain_offset + chain) on CUDA and from a ``torch.Generator``
-    seeded with ``shard_seed(seed, chain_offset)`` on the CPU.
-    ``chain_offset`` is chain 0's index in the whole block when the
-    block is split over launches (``parallel.sharding``).  ``temps``
+    by (seed, chain_offset + chain), drawn by the kernel on CUDA and by
+    ``utils.philox.keyed_uniforms`` on the CPU, so both give one chain
+    the same draws.  ``chain_offset`` is chain 0's index in the whole
+    block when the block is split over launches (``parallel.sharding``).
+    ``temps``
     (default ``[1.0]``) is the tempering ladder and ``alpha`` f32[S]
     (default None, the flat prior) the Dirichlet-multinomial dispersion
     per problem.
@@ -271,9 +272,8 @@ def denovo_sampler(lr, counts, g_init, nall, pbreak, problem, *, n_steps,
                        chain_offset=chain_offset, **kwargs)
     if lr.device.type != "cpu":
         raise ValueError(f"unsupported device {lr.device}")
-    kwargs["seed"] = shard_seed(seed, chain_offset)
     return denovo_sampler_plain(
-        lr, counts, g_init, nall, pbreak, problem, **kwargs
+        lr, counts, g_init, nall, pbreak, problem, chain_offset=chain_offset, **kwargs
     )
 
 
@@ -740,11 +740,13 @@ def _mutation_sweep_plain(g, rh, llk, lrc, cnt, nallc, uni, log_p, temp=1.0,
 def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
                          n_steps, p_recomb=0.5, p_partial=0.5, p_full=1.0,
                          refresh=64, stage=3, seed=0, noise=None, temps=None,
-                         alpha=None):
+                         alpha=None, chain_offset=0):
     """The kernel's Markov chain in vectorised torch (reference version).
 
     Chain c's rung t is row c * T + t of the state; every rung starts
-    from the chain's ``g_init``.
+    from the chain's ``g_init``.  Without ``noise`` it draws the kernel's
+    own stream: draw d of a step for chain c is ``keyed_uniforms`` row
+    chain_offset + c, f32.
     """
     temps = ladder(temps)
     S, NB, A, R, P, C = _check_inputs(
@@ -755,10 +757,7 @@ def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
     lay = draw_layout(P, NB, T)
     maxseg = max_segments(NB)
     base = next_pow2(A)
-    gen = None
-    if noise is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
+    chains = chain_offset + torch.arange(C, device=device)
     prob = problem.long().repeat_interleave(T)
     CT = C * T
     lrc = lr[prob]  # [CT, NB, A, R]
@@ -782,9 +781,7 @@ def denovo_sampler_plain(lr, counts, g_init, nall, pbreak, problem, *,
         if noise is not None:
             uni_step = noise[step]  # [D, C]
         else:
-            uni_step = torch.rand(
-                (lay["D"], C), generator=gen, device=device
-            ).clamp_(min=1e-12)
+            uni_step = keyed_uniforms(seed, chains, step, lay["D"], torch.float32).T
         # rung t of chain c draws from rows t * rung.. of column c
         uni = uni_step[: lay["swap"]].reshape(T, lay["rung"], C)
         uni = uni.permute(1, 2, 0).reshape(lay["rung"], CT)
@@ -918,10 +915,11 @@ def mutation_sweep(seed, n_alleles, lr, counts, g_onehot, llk, temp, *, noise=No
     f32[P, NB, A, C], ``llk`` f32[C].  ``rh`` is rebuilt from the
     genotype, then the P x NB sites are swept in h-major order with one
     uniform each: ``noise`` f32[P * NB, C] pins them (tests), otherwise
-    they come from Philox keyed by (seed, chain) on CUDA and from a
-    ``torch.Generator`` on the CPU.  Returns (g_onehot', rh' f32[P, R,
-    C], llk' f32[C]).  CUDA tensors launch the kernel (or raise); CPU
-    tensors run ``mutation_sweep_plain``.
+    they come from K1's stream at step 0 keyed by (seed, chain), drawn by
+    the kernel on CUDA and by ``utils.philox.keyed_uniforms`` on the CPU.
+    Returns (g_onehot', rh' f32[P, R, C], llk' f32[C]).  CUDA tensors
+    launch the kernel (or raise); CPU tensors run
+    ``mutation_sweep_plain``.
     """
     if lr.device.type == "cuda":
         return _launch_mutation(
@@ -972,9 +970,8 @@ def mutation_sweep_plain(seed, n_alleles, lr, counts, g_onehot, llk, temp, *,
     x = _mutation_layout(n_alleles, lr, counts, g_onehot, llk, noise)
     uni = x["noise"]
     if uni is None:
-        gen = torch.Generator(device=lr.device)
-        gen.manual_seed(int(seed))
-        uni = torch.rand((P * NB, C), generator=gen, device=lr.device).clamp_(min=1e-12)
+        chains = torch.arange(C, device=lr.device)
+        uni = keyed_uniforms(seed, chains, 0, P * NB, torch.float32).T
     g = x["g"].permute(2, 0, 1).long().contiguous()  # [C, P, NB]
     rh = _row_sums(g, x["lr"])
     log_p = torch.log(torch.tensor(float(P), dtype=torch.float32))

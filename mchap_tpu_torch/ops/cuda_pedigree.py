@@ -68,7 +68,7 @@ import torch
 
 from mchap_tpu_torch.ops import nvcc_build
 from mchap_tpu_torch.ops.pedigree_mcmc import markov_blankets
-from mchap_tpu_torch.utils.seeds import shard_seed
+from mchap_tpu_torch.utils.philox import philox4x32_10, split_seed, uniform_f32
 
 _NAME = "pedigree_sampler"
 MAX_PLOIDY = 8
@@ -319,8 +319,8 @@ def pedigree_sampler(rh, counts, freqs, n_valid, problem, initial, plan, *,
     on CPU tensors it runs ``pedigree_sampler_plain``.  ``noise``
     f32[n_steps, plan.n_draws(H), C] pins every uniform draw (tests);
     otherwise draws come from Philox4x32-10 keyed by (seed, chain_offset
-    + chain) on CUDA and from a ``torch.Generator`` seeded with
-    ``shard_seed(seed, chain_offset)`` on the CPU.  ``chain_offset`` is
+    + chain), drawn by the kernel on CUDA and by ``philox_step`` on the
+    CPU, so both give one chain the same draws.  ``chain_offset`` is
     chain 0's index in the whole block when the block is split over
     launches (``parallel.sharding``).
     """
@@ -333,8 +333,7 @@ def pedigree_sampler(rh, counts, freqs, n_valid, problem, initial, plan, *,
         return _launch(*args, chain_offset=chain_offset, **kwargs)
     if rh.device.type != "cpu":
         raise ValueError(f"unsupported device {rh.device}")
-    kwargs["seed"] = shard_seed(seed, chain_offset)
-    return pedigree_sampler_plain(*args, **kwargs)
+    return pedigree_sampler_plain(*args, chain_offset=chain_offset, **kwargs)
 
 
 #: kernel launches made through ``pedigree_sampler`` (CUDA tensors only)
@@ -549,9 +548,24 @@ def candidate_llks(rh_s, counts_s, rows, k, ploidy):
     return ((term - _LOG_PLOIDY[ploidy]) * counts_s.double()[..., None]).sum(1)
 
 
+def philox_step(seed, step, n, chains):
+    """K3's own draws 0..n-1 of step ``step`` for ``chains`` (int64
+    indices in the whole block): f32[len(chains), n].  Draw d of chain c
+    is word d % 4 of Philox4x32-10 with key (low 32 bits of seed, c) and
+    counter (step, d // 4, 0, high 32 bits of seed), made a uniform by
+    ``utils.philox.uniform_f32`` (``csrc/pedigree_sampler.cu``
+    ``uniform``)."""
+    seed_lo, seed_hi = split_seed(seed)
+    q = torch.arange((n + 3) // 4, device=chains.device)[None, :]
+    words = philox4x32_10(int(step), q, 0, seed_hi, seed_lo, chains.long()[:, None])
+    return uniform_f32(torch.stack(words, dim=-1)).reshape(len(chains), -1)[:, :n]
+
+
 def pedigree_sampler_plain(rh, counts, freqs, n_valid, problem, initial, plan, *,
-                           n_steps, seed=0, noise=None):
-    """K3's Markov chain in vectorised torch (the reference version)."""
+                           n_steps, seed=0, noise=None, chain_offset=0):
+    """K3's Markov chain in vectorised torch (the reference version).
+    Without ``noise`` it draws the kernel's own Philox stream
+    (``philox_step``) for chains chain_offset + c."""
     N, S, R, H, C = _check_inputs(rh, counts, freqs, n_valid, problem, initial, plan,
                                   noise, n_steps)
     device = rh.device
@@ -563,17 +577,10 @@ def pedigree_sampler_plain(rh, counts, freqs, n_valid, problem, initial, plan, *
     maxp = plan.max_ploidy
     g = initial.long().clone()
     trace = torch.empty((C, n_steps, S, maxp), dtype=torch.int16, device=device)
-    gen = None
-    if noise is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
+    chains = chain_offset + torch.arange(C, device=device)
     pair_base = S * maxp * H
+    n_draws = plan.n_draws(H)
     log1p = torch.as_tensor(_LOG1P, device=device)
-
-    def uniforms(step, start, n):
-        if noise is not None:
-            return noise[step, start:start + n].T  # [C, n]
-        return torch.rand((C, n), generator=gen, device=device).clamp_(min=1e-12)
 
     def trio(xs, override, cand=False):
         """Summed log trio pmfs of samples ``xs`` (one trio configuration)
@@ -595,6 +602,7 @@ def pedigree_sampler_plain(rh, counts, freqs, n_valid, problem, initial, plan, *
         ).sum(-1)
 
     for step in range(n_steps):
+        u_step = noise[step].T if noise is not None else philox_step(seed, step, n_draws, chains)
         for s in plan.order:
             P = int(plan.ploidy[s])
             for k in range(P):
@@ -610,11 +618,12 @@ def pedigree_sampler_plain(rh, counts, freqs, n_valid, problem, initial, plan, *
                     (rows[:, j, None] == alleles).long() for j in range(P) if j != k
                 ) if P > 1 else torch.zeros((C, H), dtype=torch.long, device=device)
                 logit = llk + prior + log1p[copies]
-                u = uniforms(step, (s * maxp + k) * H, H).double()
+                d = (s * maxp + k) * H
+                u = u_step[:, d:d + H].double()
                 score = torch.where(valid, logit - torch.log(-torch.log(u)), -math.inf)
                 g[:, s, k] = torch.argmax(score, dim=1)
         for i, ((p, q), groups) in enumerate(zip(plan.pairs, plan.blanket_groups)):
-            u = uniforms(step, pair_base + 3 * i, 3)
+            u = u_step[:, pair_base + 3 * i:pair_base + 3 * i + 3]
             g = _pair_swap(g, p, q, groups, u, rhc, cntc, plan, trio)
         trace[:, step] = g.to(torch.int16)
     return trace

@@ -14,8 +14,10 @@ the CUDA kernel K3 (``ops/cuda_pedigree.py``) does not: double reduction
 (lambda > 0), Metropolis-Hastings steps and two-parent samples whose
 gamete ploidies do not sum to their ploidy.  Slots are visited in
 systematic order 0..P-1 (the JAX package draws a random order; both are
-valid Gibbs scans, gated against exact enumeration).  Draws come from an
-explicit ``torch.Generator``.
+valid Gibbs scans, gated against exact enumeration).  A step's draws
+come from one ``utils.philox.keyed_uniforms`` call, keyed by the seed
+and each chain's index in the whole block, so how a block is split over
+devices and processes changes no draw.
 
 Genotypes are fixed-width int rows [..., max_ploidy] padded with -1 for
 lower-ploidy samples, as in the reference.
@@ -26,6 +28,8 @@ import math
 
 import numpy as np
 import torch
+
+from mchap_tpu_torch.utils.philox import keyed_uniforms
 
 NEG = -1e300  # finite stand-in for log(0): -inf would turn MH ratios into nan
 TINY = 1e-300
@@ -469,11 +473,14 @@ def _sample_llk(rh, counts, rows, ploidy):
     return (counts * read_log).sum(-1)
 
 
-def pedigree_sampler(gen, initial, rh, counts, log_freqs, n_valid, problem, ped,
-                     *, n_steps, step_type=0, swap_parental_alleles=True):
+def pedigree_sampler(seed, row_offset, initial, rh, counts, log_freqs, n_valid, problem,
+                     ped, *, n_steps, step_type=0, swap_parental_alleles=True):
     """Run the joint pedigree sampler for B = len(problem) chains.
 
-    gen : torch.Generator on the tensors' device
+    seed : the draws' seed; row_offset : the global index of chain 0 in
+        the whole block.  Chain b draws ``keyed_uniforms`` row row_offset
+        + b: each (color, slot) update takes H draws per member (Gibbs)
+        or 1 (Metropolis-Hastings), in update order, then each pair 3
     initial : i[B, S, maxp] (-1 pads lower-ploidy samples)
     rh : f64[N, S, R, H] per-problem read x haplotype log-likelihoods;
     counts : f64[N, S, R]; log_freqs : f64[N, H] (padding -inf);
@@ -508,8 +515,11 @@ def pedigree_sampler(gen, initial, rh, counts, log_freqs, n_valid, problem, ped,
             torch.as_tensor(ped.ploidy[ids], device=device),
         ))
     pairs = ped.pairs if swap_parental_alleles else ped.pairs[:0]
+    per_member = H if step_type == 0 else 1
+    n_draws = sum(maxp * len(ids) * per_member for ids, _, _ in color_tabs) + 3 * len(pairs)
+    chain_rows = row_offset + torch.arange(B, device=device)
 
-    def slot_update(ids, blanket, ploidy, k):
+    def slot_update(u, ids, blanket, ploidy, k):
         n_c = ids.shape[0]
         rows = g[:, ids]  # [B, n_c, maxp]
         rh_s = rh_c[:, ids]  # [B, n_c, R, H]
@@ -539,8 +549,6 @@ def pedigree_sampler(gen, initial, rh, counts, log_freqs, n_valid, problem, ped,
         vmask = valid[:, None, :]
         if step_type == 0:
             logits = torch.where(vmask, llks + lpriors + torch.log(counts_other + 1.0), -math.inf)
-            u = torch.rand(logits.shape, generator=gen, dtype=torch.float64,
-                           device=device).clamp_(min=TINY)
             choice = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
         else:
             ci = cur.clamp(min=0)[..., None]
@@ -555,14 +563,12 @@ def pedigree_sampler(gen, initial, rh, counts, log_freqs, n_valid, problem, ped,
             probs = accept.scatter(-1, ci, 0.0) / n_prop
             probs = probs.scatter(-1, ci, 1.0 - probs.sum(-1, keepdim=True))
             cdf = torch.cumsum(probs, -1)
-            u = torch.rand((B, n_c, 1), generator=gen, dtype=torch.float64, device=device)
             choice = (cdf <= u * cdf[..., -1:]).sum(-1)
         new = torch.where((k < ploidy)[None, :], choice, cur)
         g[:, ids, k] = new
 
-    def pair_swap(p, q, blanket):
+    def pair_swap(u, p, q, blanket):
         pp, pq = int(ped.ploidy[p]), int(ped.ploidy[q])
-        u = torch.rand((3, B), generator=gen, dtype=torch.float64, device=device)
         idx_p = torch.clamp((u[0] * pp).long(), max=pp - 1)
         idx_q = torch.clamp((u[1] * pq).long(), max=pq - 1)
         ar = torch.arange(B, device=device)
@@ -600,10 +606,16 @@ def pedigree_sampler(gen, initial, rh, counts, log_freqs, n_valid, problem, ped,
         for (p, q), blanket in zip(pairs, ped.blankets)
     ]
     for step in range(n_steps):
+        u = keyed_uniforms(seed, chain_rows, step, n_draws, torch.float64)
+        d = 0
         for ids, blanket, ploidy in color_tabs:
+            n = len(ids) * per_member
             for k in range(maxp):
-                slot_update(ids, blanket, ploidy, k)
+                slot_update(u[:, d:d + n].view(B, len(ids), per_member), ids, blanket,
+                            ploidy, k)
+                d += n
         for p, q, blanket in pair_tabs:
-            g = pair_swap(p, q, blanket)
+            g = pair_swap(u[:, d:d + 3].T, p, q, blanket)
+            d += 3
         trace[:, step] = g
     return trace

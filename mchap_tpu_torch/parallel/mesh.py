@@ -16,7 +16,6 @@ from mchap_tpu_torch.ops import calling_mcmc as _kernel
 from mchap_tpu_torch.ops.likelihood import prepare_reads, read_hap_loglik
 from mchap_tpu_torch.parallel import distributed as _dist
 from mchap_tpu_torch.parallel.sharding import run_sharded
-from mchap_tpu_torch.utils.seeds import shard_seed
 
 
 def sharded_calling_step(devices, *, n_steps, ploidy, step_type=0, prior_kind=0):
@@ -25,9 +24,10 @@ def sharded_calling_step(devices, *, n_steps, ploidy, step_type=0, prior_kind=0)
     Returns fn(seed, initial [B, C, ploidy], read_hap [B, R, H],
     read_counts [B, R]) -> (genotypes [B, C, n_steps, ploidy], llks [B,
     C, n_steps], allele_counts [H]): the problem batch B is split over
-    the devices (and ranks), each shard drawing from a generator seeded
-    with ``shard_seed(seed, first problem)``; genotypes and llks come back
-    as host arrays in problem order, and ``allele_counts`` is the
+    the devices (and ranks), each chain's draws keyed by the seed and its
+    index in the whole batch (``ops.calling_mcmc.calling_sampler``), so
+    the split changes no result; genotypes and llks come back as host
+    arrays in problem order, and ``allele_counts`` is the
     population-pooled count of each allele over every shard's trace, a
     tensor on the first device.
     """
@@ -40,11 +40,9 @@ def sharded_calling_step(devices, *, n_steps, ploidy, step_type=0, prior_kind=0)
         total = torch.zeros(n_alleles, dtype=torch.float64, device=devices[0])
 
         def launch(sh):
-            gen = torch.Generator(device=sh.device)
-            gen.manual_seed(shard_seed(seed, sh.start))
             genotypes, llks = _kernel.calling_sampler(
-                gen, *sh.arrays, n_steps=n_steps, step_type=step_type,
-                prior_kind=prior_kind,
+                seed, sh.start * initial.shape[1], *sh.arrays, n_steps=n_steps,
+                step_type=step_type, prior_kind=prior_kind,
             )
             # a fixed-size scatter: bincount on a card waits for it
             flat = genotypes.reshape(-1)

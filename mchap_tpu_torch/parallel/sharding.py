@@ -9,15 +9,14 @@ or a list the caller pins) and, in a process group
 launch on its device, at the block's shapes, and the shards' outputs
 are gathered on the host in problem order.
 
-Placement cannot change results where the draws are keyed by chain: K1,
-K2 and K3 key their Philox streams by (seed, ``chain_offset`` + chain),
-with ``chain_offset`` the shard's first chain in the whole block, so a
-sharded run gives the unsharded launch's genotypes and llks bit for bit.
-The torch samplers and the kernels' plain versions draw from a
-``torch.Generator``; each shard's is seeded with ``shard_seed(seed,
-offset)`` (``utils.seeds``), so those runs are reproducible for a given
-placement (and at offset 0 unchanged), not placement-free.  ``MCHAP_SHARD=0`` keeps a
-process's block on one card.
+Placement cannot change results: every sampler draws from Philox4x32-10
+keyed by the seed and a chain's (or chain-rung's) index in the whole
+block.  K1, K2 and K3 and their plain versions take the shard's first
+chain as ``chain_offset``, the torch samplers the shard's first row as
+``row_offset`` (``utils.philox.keyed_uniforms``), so a sharded run gives
+the unsharded run's genotypes and llks bit for bit, on any number of
+devices and ranks.  ``MCHAP_SHARD=0`` keeps a process's blocks on one
+card.
 """
 
 import contextlib

@@ -411,7 +411,7 @@ def test_prior_only_six_reads():
     generator = torch.Generator().manual_seed(11)
     initial = torch.randint(0, 2, (1, chains, 4, 2), generator=generator)
     genotypes, _ = T.denovo_sampler(
-        generator, initial, prepare_reads(reads)[None], torch.ones((1, len(reads))),
+        11, 0, initial, prepare_reads(reads)[None], torch.ones((1, len(reads))),
         torch.full((1, 2), 2), torch.tensor([[0.75, 0.25]]), [1.0], n_steps=200,
         burn=40, inbreeding=torch.tensor([0.5]),
     )
@@ -438,7 +438,7 @@ def test_row_chunks_change_nothing(monkeypatch):
     kw = dict(n_steps=6, burn=2, inbreeding=torch.tensor([0.0, 0.1, 0.2]))
 
     def run():
-        return T.denovo_sampler(torch.Generator().manual_seed(3), *args, **kw)
+        return T.denovo_sampler(3, 0, *args, **kw)
 
     whole = run()
     rows, step = [], T._interval_step

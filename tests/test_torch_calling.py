@@ -5,7 +5,7 @@
   ``pallas_calling_sampler(interpret=True)``, whose interpreter PRNG gives
   1e-12 for every draw: alleles identical, llks within 1e-4 relative
   (both add in f32, in different orders and from different anchors).
-- The plain version with its ``torch.Generator`` stream against exact
+- The plain version with its kernel's Philox stream against exact
   enumeration (total variation < 0.05).
 - The anchor case: a read far below every real haplotype of a 3-allele
   panel makes the TPU kernel pick a padding allele; the port does not.
@@ -30,6 +30,7 @@ from mchap_tpu_torch.numerics import combinadics, dosage
 from mchap_tpu_torch.ops import calling_mcmc, cuda_calling, priors
 from mchap_tpu_torch.ops.cuda_calling import calling_sampler, calling_sampler_plain
 from mchap_tpu_torch.ops.likelihood import prepare_reads, read_hap_loglik
+from mchap_tpu_torch.utils.philox import philox4x32_10
 
 # These tests run many small torch ops: beside the test runner's
 # parallel workers, torch's own thread pool only contends for the cores.
@@ -186,13 +187,14 @@ def test_k2_anchor_takes_valid_alleles_only():
      (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
 ])
 def test_k2_host_philox_known_answers(ctr, key, want):
-    """The host's Philox4x32-10, and ``philox_noise``'s draw (step, slot,
+    """The port's Philox4x32-10, and ``philox_noise``'s draw (step, slot,
     h, chain) as word h % 4 of the call at counter (step, slot, h // 4,
     seed >> 32) and key (seed & 0xFFFFFFFF, chain)."""
-    assert tuple(int(w) for w in cuda_calling._philox4x32_10(ctr, key)) == want
+    words = philox4x32_10(*(torch.tensor(x) for x in ctr + key))
+    assert tuple(int(w) for w in words) == want
     seed = (ctr[3] << 32) | key[0]
     t, k, q, c = ctr[0] % 3, ctr[1] % 2, ctr[2] % 2, key[1] % 5
-    words = cuda_calling._philox4x32_10((t, k, q, ctr[3]), (key[0], c))
+    words = philox4x32_10(*(torch.tensor(x) for x in (t, k, q, ctr[3], key[0], c)))
     noise = cuda_calling.philox_noise(seed, 3, 2, 7, 5)
     for w in range(4 if q == 0 else 3):  # H = 7: call 1 has three draws
         u = max(np.float32(int(words[w]) >> 9) * np.float32(2.0 ** -23), np.float32(1e-12))
@@ -370,10 +372,8 @@ def test_torch_sampler_matches_exact_posterior(step_type, prior):
     rh = torch.from_numpy(_rh(reads, HAPS))[None]
     kind = 0 if prior is None else 1
     chains, steps, burn = 64, 500, 100
-    gen = torch.Generator()
-    gen.manual_seed(7)
     g, _ = calling_mcmc.calling_sampler(
-        gen, torch.zeros((1, chains, 4), dtype=torch.long), rh,
+        7, 0, torch.zeros((1, chains, 4), dtype=torch.long), rh,
         torch.ones((1, rh.shape[1]), dtype=torch.float64), n_steps=steps,
         step_type=step_type, prior_kind=kind,
         inbreeding=0.0 if prior is None else prior[0],

@@ -11,7 +11,9 @@ panels of 3, 5, 16 and 40 (over 32 lanes) haplotypes; 16 to 64 reads,
 different read groups, some past the last read, and lanes with one
 batch of reads or many); and candidates tied or nearly tied.  Without
 noise, the kernel's own Philox draws, made in the step before a slot or
-in the slot, must be those of ``cuda_calling.philox_noise``.  A few
+in the slot, must be those of ``cuda_calling.philox_noise``, and the
+plain version without noise, which draws them itself, must give the
+kernel's chains.  A few
 seconds, the g++ build included.  Skips where g++ is missing.
 """
 
@@ -129,6 +131,20 @@ def test_kernel_philox_matches_host_stream(emulated, P, H, n_valid):
     g_k, l_k = KC._launch(*args, n_steps=steps, ploidy=P, seed=seed, noise=None)
     noise = KC.philox_noise(seed, steps, P, H, C)
     g_p, l_p = KC.calling_sampler_plain(*args, n_steps=steps, ploidy=P, noise=noise)
+    np.testing.assert_array_equal(g_k.numpy(), g_p.numpy())
+    np.testing.assert_allclose(l_k.numpy(), l_p.numpy(), rtol=0, atol=1e-4)
+    assert (g_k[1:] != g_k[:-1]).any()
+
+
+def test_live_draws_match_plain(emulated):
+    """Kernel and plain version both with no ``noise``, at chain offset
+    1000: the plain version's own draws (``philox_step``) are the
+    kernel's."""
+    P, H, R, steps, C, seed = 4, 16, 24, 4, 8, (5 << 32) | 0x9E3779B9
+    args = _inputs(P, H, R, C, (16, 7), seed=7)
+    kw = dict(n_steps=steps, ploidy=P, seed=seed, noise=None, chain_offset=1000)
+    g_k, l_k = KC._launch(*args, **kw)
+    g_p, l_p = KC.calling_sampler_plain(*args, **kw)
     np.testing.assert_array_equal(g_k.numpy(), g_p.numpy())
     np.testing.assert_allclose(l_k.numpy(), l_p.numpy(), rtol=0, atol=1e-4)
     assert (g_k[1:] != g_k[:-1]).any()

@@ -7,7 +7,10 @@ wrapper's own ``_launch`` on CPU tensors.  With pinned noise each case
 must give the plain version's packed trace on every chain and its llks
 within 1e-4 (the host's expf/logf against torch's): ploidy 1 to 12, A 2
 to 4, stages 1 to 3, ladders and the prior, near-zero noise that takes
-nearly every move, a state too deep for shared memory, and K0.  About
+nearly every move, a state too deep for shared memory, and K0.  Without
+noise the kernel draws its own Philox stream and the plain version
+draws the same one on the host (``utils.philox.keyed_uniforms``), so
+the two must agree there too, at a non-zero ``chain_offset``.  About
 30 s, the two g++ builds included.  Skips where g++ is missing.
 """
 
@@ -142,6 +145,41 @@ def test_mutation_sweep_kernel_matches_plain(emulated, P, A):
     np.testing.assert_array_equal(g_k.numpy(), g_p.numpy())
     np.testing.assert_allclose(rh_k.numpy(), rh_p.numpy(), rtol=0, atol=1e-4)
     np.testing.assert_allclose(llk_k.numpy(), llk_p.numpy(), rtol=0, atol=1e-4)
+
+
+SEED = (5 << 32) | 0x9E3779B9  # both halves of the seed in use
+
+
+@pytest.mark.parametrize("temps, prior", [(None, False), ([0.3, 0.6, 1.0], True)])
+def test_live_draws_match_plain(emulated, temps, prior):
+    """K1 flat, and with a ladder and the prior, with no ``noise``: the
+    kernel's Philox draws and the plain version's host copy of them give
+    the same traces, at chain offset 1000."""
+    args = _inputs(4, 8, 2, 64, 8, seed=40, n_distinct=2)
+    kw = dict(n_steps=5, p_recomb=0.5, p_partial=0.5, p_full=1.0, refresh=4, stage=3,
+              seed=SEED, noise=None, temps=K.ladder(temps),
+              alpha=torch.tensor([0.05, 0.5]) if prior else None)
+    t_k, l_k = K._launch(*args, chain_offset=1000, **kw)
+    t_p, l_p = K.denovo_sampler_plain(*args, chain_offset=1000, **kw)
+    np.testing.assert_array_equal(t_k.numpy(), t_p.numpy())
+    np.testing.assert_allclose(l_k.numpy(), l_p.numpy(), rtol=0, atol=1e-4)
+    assert (t_k[1:] != t_k[:-1]).any()
+
+
+def test_mutation_sweep_live_draws_match_plain(emulated):
+    """K0 with no ``noise``: its Philox draws (K1's stream at step 0,
+    chains from 0) are the plain version's."""
+    R, NB, A, C, P = 64, 12, 2, 6, 4
+    args = _inputs(P, NB, A, R, C, seed=41)
+    lr = args[0][args[5].long()].permute(3, 1, 2, 0).contiguous()
+    onehot = torch.nn.functional.one_hot(args[2].long(), A).permute(0, 1, 3, 2)
+    x = (torch.full((NB,), A, dtype=torch.int32), lr, torch.ones((R, C)),
+         onehot.float().contiguous(), torch.full((C,), -1e3))  # an llk below every move's
+    g_k, rh_k, llk_k = K._launch_mutation(SEED, *x, 0.5, noise=None)
+    g_p, rh_p, llk_p = K.mutation_sweep_plain(SEED, *x, 0.5, noise=None)
+    np.testing.assert_array_equal(g_k.numpy(), g_p.numpy())
+    np.testing.assert_allclose(llk_k.numpy(), llk_p.numpy(), rtol=0, atol=1e-4)
+    assert not torch.equal(g_k, x[3])
 
 
 def _launch_chains(args, lo, hi, offset, kw):

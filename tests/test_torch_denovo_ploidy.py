@@ -1,12 +1,12 @@
-"""K1 above ploidy 8: the port's plain version against the JAX kernel and
-against exact enumeration.
+"""K1 above ploidy 8: the port's plain version against exact enumeration
+(its comparison with the JAX kernel at ploidy 9 is
+``test_torch_denovo_ploidy9.py``, a file of its own so that the two run
+on two test workers).
 
-- With its noise pinned at 1e-12, the plain version retraces
-  ``pallas_denovo_sampler(..., interpret=True)`` at ploidy 9, stage 3
-  (identical packed traces, llks within 1e-4).
-- With its own generator it samples the exact posterior of a ploidy 10
-  and a ploidy 12 problem over two biallelic SNVs (286 and 455
-  genotypes) within the bound of ``test_plain_sampler_matches_exact_posterior``.
+With its kernel's own Philox stream the plain version samples the exact
+posterior of a ploidy 10 and a ploidy 12 problem over two biallelic
+SNVs (286 and 455 genotypes) within the bound of
+``test_plain_sampler_matches_exact_posterior``.
 """
 
 import numpy as np
@@ -18,18 +18,10 @@ from mchap_tpu_torch.numerics.combinadics import genotype_alleles_as_index
 from mchap_tpu_torch.ops import cuda_denovo as K
 from mchap_tpu_torch.ops.likelihood import prepare_reads
 from mchap_tpu_torch.testing import simulate_reads
-from test_torch_fixtures import k1_compare_with_pallas
 
 # These tests run many small torch ops: beside the test runner's
 # parallel workers, torch's own thread pool only contends for the cores.
 torch.set_num_threads(1)
-
-
-def test_plain_matches_pallas_interpret_ploidy9():
-    """About 150 s on one core, nearly all of it the JAX interpreter's
-    compile of the kernel's 36 recombination and 72 dosage options at
-    ploidy 9; three positions and one step keep the rest small."""
-    k1_compare_with_pallas(9, 2, 3, n_steps=1, NB=3)
 
 
 @pytest.mark.parametrize("P", [10, 12])

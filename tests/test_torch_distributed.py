@@ -8,10 +8,11 @@ launcher, after ``tests/test_distributed.py``.
   package's launcher: ``fit_calling_multi``'s K2 route with every draw
   pinned gives both ranks the single-process genotypes, and only rank 0
   is the output process.
-- ``python -m mchap_tpu_torch call`` in two ranks: rank 0 writes the
-  records a single process writes with the block split the same way
-  (the plain K2 seeds each shard's generator from its first chain), and
-  rank 1 writes nothing.
+- ``python -m mchap_tpu_torch call`` in two ranks, on K2's route (its
+  plain version here) and on the torch sampler's (``--use-dirmul-prior``):
+  rank 0 writes the records one process writes, byte for byte, since
+  every draw is keyed by the chain's index in the whole block, and rank
+  1 writes nothing.
 """
 
 import contextlib
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from mchap_tpu_torch.parallel import distributed, launch, sharding
+from mchap_tpu_torch.parallel import distributed, launch
 from test_torch_fixtures import write_dataset, write_haplotype_vcf
 
 torch.set_num_threads(1)
@@ -125,14 +126,18 @@ def test_two_gloo_processes_fit_the_single_process_genotypes():
     assert got.shape == (5, 2, 20, 4)
 
 
-def test_two_rank_call_writes_from_rank_zero_only(tmp_path, monkeypatch):
+def _two_rank_call_equals_one_process(tmp_path, route, extra=()):
+    """``call`` in two gloo ranks and in one process, which takes the
+    calling ``route``: rank 0's records equal the process's, rank 1
+    writes nothing."""
     from mchap_tpu_torch.application.cli import main
+    from mchap_tpu_torch.utils import fallback
 
     data = write_dataset(tmp_path / "reads", seed=0)
-    panel = write_haplotype_vcf(tmp_path / "haplotypes.vcf", data)
+    panel = write_haplotype_vcf(tmp_path / "haplotypes.vcf", data, frequency_tag="AFP")
     tool = ["call", "--bam", *data["bams"], "--ploidy", "4", "--haplotypes", panel,
             "--reference", data["reference"], "--mcmc-steps", "60", "--mcmc-burn", "20",
-            "--mcmc-seed", "3", "--device", "cpu", "--locus-batch", "3"]
+            "--mcmc-seed", "3", "--device", "cpu", "--locus-batch", "3", *extra]
     outs = [tmp_path / f"rank{r}.vcf" for r in range(2)]
     env = {k: v for k, v in os.environ.items() if k != "MCHAP_EMIT_ALL_HOSTS"}
     codes = launch.launch(["-m", "mchap_tpu_torch", *tool], 2, stdout=outs, timeout=120,
@@ -140,18 +145,11 @@ def test_two_rank_call_writes_from_rank_zero_only(tmp_path, monkeypatch):
     assert codes == [0, 0]
     assert outs[1].read_text() == ""
 
-    # one process with the block split over two devices as the two ranks split it
-    blocks = []
-
-    def two_devices(n, devices, device):
-        blocks.append(n)
-        return [torch.device("cpu")] * 2
-
-    monkeypatch.setattr(sharding, "problem_devices", two_devices)
+    fallback.PATHS.clear()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert main(["mchap", *tool]) == 0
-    assert blocks == [9]  # one block: 3 loci x 3 samples
+    assert set(fallback.PATHS) == {("calling", route)}
 
     def records(text):
         return [line for line in text.splitlines()
@@ -160,3 +158,13 @@ def test_two_rank_call_writes_from_rank_zero_only(tmp_path, monkeypatch):
     got, want = records(outs[0].read_text()), records(out.getvalue())
     assert got == want
     assert sum(not line.startswith("#") for line in got) == 3
+
+
+def test_two_rank_call_writes_from_rank_zero_only(tmp_path):
+    _two_rank_call_equals_one_process(tmp_path, "plain")
+
+
+def test_two_rank_torch_route_call_equals_one_process(tmp_path):
+    """The torch calling sampler (a Dirichlet-multinomial prior) in two
+    ranks, each drawing its half of the block's chains."""
+    _two_rank_call_equals_one_process(tmp_path, "torch", ("--use-dirmul-prior", "0.1", "AFP"))

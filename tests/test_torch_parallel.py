@@ -10,8 +10,10 @@ The port's counterpart of ``tests/test_parallel.py``, on CPU "devices"
 - The het-compaction trap: problems of different het widths, so that a
   shard compacting on its own would launch narrower; every shard must
   launch at the block's width.
-- Torch routes sharded over two devices: reproducible run to run, and
-  within the existing exact-enumeration bounds.
+- Torch routes, whose draws are keyed by each row's index in the whole
+  block: sharded over 2 and 3 devices, on blocks of five problems, they
+  give the unsharded run's traces bit for bit, and they stay within the
+  existing exact-enumeration bounds.
 - ``call-exact``'s block path sharded: byte-equal VCF.
 - Pools against the host formulas and JAX's ``pooled_info_collectives``
   on a 2-device mesh; the sharded calling step and its pooled counts.
@@ -38,7 +40,6 @@ from mchap_tpu_torch.ops import exact
 from mchap_tpu_torch.ops.likelihood import MIN_LOG
 from mchap_tpu_torch.parallel import mesh, pools, sharding
 from mchap_tpu_torch.utils import fallback
-from mchap_tpu_torch.utils.seeds import shard_seed
 from test_torch_assemble_model import _wrapper_case
 
 torch.set_num_threads(1)
@@ -76,8 +77,7 @@ def test_problem_devices(monkeypatch):
 
 
 def test_split_and_shard_problems():
-    """Contiguous, near-equal, unpadded blocks; empty shards dropped;
-    offset 0 leaves the seed as it is."""
+    """Contiguous, near-equal, unpadded blocks; empty shards dropped."""
     assert sharding.split(7, 3) == [(0, 3), (3, 5), (5, 7)]
     assert sharding.split(2, 3) == [(0, 1), (1, 2), (2, 2)]
     x, y = torch.arange(14).reshape(7, 2), torch.arange(7.0)
@@ -86,8 +86,6 @@ def test_split_and_shard_problems():
     assert torch.equal(torch.cat([s.arrays[0] for s in shards]), x)
     assert len(sharding.shard_problems([CPU] * 3, 2, x[:2])) == 2
     assert sharding.gather_result([[1, 2], [3]]) == [1, 2, 3]
-    assert shard_seed(123, 0) == 123
-    assert len({shard_seed(123, k) for k in range(50)}) == 50
 
 
 # ---------------------------------------------------------------------------
@@ -255,30 +253,41 @@ def test_k3_sharded_matches_unsharded_and_jax():
 
 
 # ---------------------------------------------------------------------------
-# torch routes: reproducible per placement, within the exact bounds
+# torch routes: placement-free, within the exact bounds
 # ---------------------------------------------------------------------------
+
+
+def _assert_placement_free(fit):
+    """``fit(devices)``'s traces over 2 and 3 devices equal the unsharded
+    run's bit for bit."""
+    whole = fit(None)
+    for devices in SHARDS.values():
+        got = fit(devices)
+        assert len(got) == len(whole)
+        for a, b in zip(got, whole):
+            np.testing.assert_array_equal(a.genotypes, b.genotypes)
+            np.testing.assert_array_equal(a.llks, b.llks)
 
 
 def test_torch_denovo_route_sharded():
     """test_torch_assemble_mcmc's mixed-inbreeding block (K1 refuses F =
-    0) over two devices, one problem each."""
+    0): five problems unsharded and over two and three devices, and two
+    over two devices, one problem each, against exact enumeration."""
     from test_torch_assemble_mcmc import TRUTH_P4, _exact_posterior, _reads, _sampled_posterior
 
     reads = _reads(TRUTH_P4, 8, (15, 25), 3)
-    problems = [dict(reads=reads, counts=np.ones(len(reads)), n_alleles=[2, 2], inbreeding=f)
-                for f in (0.0, 0.2)]
 
-    def fit(steps, chains, burn):
+    def fit(steps, chains, burn, devices=SHARDS["2"], fs=(0.0, 0.2)):
+        problems = [dict(reads=reads, counts=np.ones(len(reads)), n_alleles=[2, 2],
+                         inbreeding=f) for f in fs]
         fallback.PATHS.clear()
         traces = assemble.fit_denovo_multi(problems, 4, steps=steps, chains=chains,
                                            burn=burn, random_seed=5, device="cpu",
-                                           devices=SHARDS["2"])
+                                           devices=devices)
         assert dict(fallback.PATHS) == {("denovo", "torch"): 1}
         return traces
 
-    for a, b in zip(fit(20, 4, 5), fit(20, 4, 5)):
-        np.testing.assert_array_equal(a.genotypes, b.genotypes)
-        np.testing.assert_array_equal(a.llks, b.llks)
+    _assert_placement_free(lambda devices: fit(20, 4, 5, devices, (0.0, 0.2, 0.0, 0.1, 0.2)))
     for f, trace in zip((0.0, 0.2), fit(160, 16, 40)):
         np.testing.assert_allclose(
             _sampled_posterior(trace.genotypes, 4), _exact_posterior(reads, 4, f), atol=0.05
@@ -286,8 +295,9 @@ def test_torch_denovo_route_sharded():
 
 
 def test_torch_calling_route_sharded():
-    """test_torch_calling_model's prior case (the torch sampler) over two
-    devices."""
+    """test_torch_calling_model's prior case (the torch sampler): five
+    problems unsharded and over two and three devices, and two over two
+    devices against exact enumeration."""
     reads = simulate_reads(HAPS[[0, 1, 1, 3]], n_alleles=2, n_reads=8, qual=(20, 30), seed=9)
     freqs = np.array([0.4, 0.3, 0.2, 0.1])
     problems = [
@@ -297,14 +307,15 @@ def test_torch_calling_route_sharded():
              frequencies=freqs[:3] / freqs[:3].sum()),
     ]
 
-    def fit(steps, chains, burn):
-        return calling.fit_calling_multi(problems, ploidy=4, steps=steps, chains=chains,
-                                         random_seed=1, burn=burn, device="cpu",
-                                         devices=SHARDS["2"])
+    def fit(steps, chains, burn, devices=SHARDS["2"], block=problems):
+        fallback.PATHS.clear()
+        traces = calling.fit_calling_multi(block, ploidy=4, steps=steps, chains=chains,
+                                           random_seed=1, burn=burn, device="cpu",
+                                           devices=devices)
+        assert dict(fallback.PATHS) == {("calling", "torch"): 1}
+        return traces
 
-    for a, b in zip(fit(30, 4, 5), fit(30, 4, 5)):
-        np.testing.assert_array_equal(a.genotypes, b.genotypes)
-        np.testing.assert_array_equal(a.llks, b.llks)
+    _assert_placement_free(lambda devices: fit(30, 4, 5, devices, (problems * 3)[:5]))
     traces = fit(500, 48, 100)
     for t, k, f, panel in ((traces[0], 0.1, freqs, HAPS),
                            (traces[1], 0.3, freqs[:3] / freqs[:3].sum(), HAPS[:3])):
@@ -314,9 +325,10 @@ def test_torch_calling_route_sharded():
 
 
 def test_torch_pedigree_route_sharded():
-    """Metropolis-Hastings steps (the torch joint sampler) over two
-    devices: reproducible run to run, every allele inside its panel."""
-    problems, design = _pedigree_problems(n_loci=3)
+    """Metropolis-Hastings steps (the torch joint sampler) on five loci:
+    unsharded and over two and three devices bit for bit, every allele
+    inside its panel."""
+    problems, design = _pedigree_problems(n_loci=5)
 
     def fit(devices):
         fallback.PATHS.clear()
@@ -325,9 +337,10 @@ def test_torch_pedigree_route_sharded():
         assert dict(fallback.PATHS) == {("pedigree", "torch"): 1}
         return trace
 
-    first, second = fit(SHARDS["2"]), fit(SHARDS["2"])
-    np.testing.assert_array_equal(first, second)
-    assert first.shape == (3, 2, 6, 6, 4)
+    first = fit(None)
+    for devices in SHARDS.values():
+        np.testing.assert_array_equal(fit(devices), first)
+    assert first.shape == (5, 2, 6, 6, 4)
     for locus, p in enumerate(problems):
         assert 0 <= first[locus].min() and first[locus].max() < len(p["haplotypes"])
 
@@ -414,7 +427,7 @@ def test_pools_match_host_formulas_and_jax():
 def test_sharded_calling_step_pools_counts():
     """make_problem_batch gives JAX's read-hap matrix from the same rng
     draws; the sharded step's pooled counts are its traces' allele counts,
-    and a placement reproduces itself."""
+    and every placement gives the single device's genotypes."""
     args = (5, 2, 4, 8, 3, 4)
     batch = mesh.make_problem_batch(np.random.default_rng(1), *args)
     jbatch = jax_mesh.make_problem_batch(np.random.default_rng(1), *args)
@@ -423,5 +436,7 @@ def test_sharded_calling_step_pools_counts():
     g, llks, counts = step(3, *batch)
     assert g.shape == (5, 2, 6, 4) and llks.shape == (5, 2, 6)
     np.testing.assert_array_equal(counts.numpy(), np.bincount(g.ravel(), minlength=4))
-    g2, _, _ = step(3, *batch)
-    np.testing.assert_array_equal(g, g2)
+    for devices in ([CPU], SHARDS["2"]):
+        g2, llks2, _ = mesh.sharded_calling_step(devices, n_steps=6, ploidy=4)(3, *batch)
+        np.testing.assert_array_equal(g, g2)
+        np.testing.assert_array_equal(llks, llks2)

@@ -220,10 +220,8 @@ def test_torch_sampler_matches_exact(step_type, swap):
         TK_read_hap(sample_reads[i]) for i in range(3)
     ])[None]
     ped = TK.Pedigree(np.full(3, 2), TRIO, tau, lam, err, torch.device("cpu"))
-    gen = torch.Generator()
-    gen.manual_seed(5)
     trace = TK.pedigree_sampler(
-        gen, torch.zeros((96, 3, 2), dtype=torch.long), rh, torch.as_tensor(counts)[None],
+        5, 0, torch.zeros((96, 3, 2), dtype=torch.long), rh, torch.as_tensor(counts)[None],
         torch.log(torch.full((1, 3), 1 / 3, dtype=torch.float64)), torch.tensor([3]),
         torch.zeros(96, dtype=torch.long), ped, n_steps=100,
         step_type=0 if step_type == "Gibbs" else 1, swap_parental_alleles=swap,
@@ -244,7 +242,7 @@ def TK_read_hap(reads):
 
 @pytest.mark.parametrize("selfed", [False, True])
 def test_k3_plain_matches_exact(selfed):
-    """K3's plain version with its own torch.Generator stream: the diploid
+    """K3's plain version with its own kernel's Philox stream: the diploid
     trio, and a selfed trio (child of (0, 0)), against exact enumeration."""
     sample_reads, counts, llks = _trio_reads(seed=2)
     parents = np.array([[-1, -1], [-1, -1], [0, 0]]) if selfed else TRIO

@@ -7,7 +7,9 @@ tensors.  With pinned noise the kernel must give the plain version's
 trace on a tetraploid family of 2 parents and 5 progeny over three loci,
 at 1, 4 and 16 warps per block;
 without noise its Philox draws must be keyed by global chain, so a block
-launched in pieces with ``chain_offset`` gives the whole launch's trace.
+launched in pieces with ``chain_offset`` gives the whole launch's trace,
+and the plain version, drawing the same stream on the host, must give
+the kernel's trace.
 Skips where g++ is missing.
 """
 
@@ -97,3 +99,15 @@ def test_chain_offset_keys_philox_by_global_chain(emulated):
                       freqs[1:3].contiguous(), nv[1:3].contiguous(),
                       (prob[2:6] - 1).contiguous(), init[2:6].contiguous(), plan, **kw)
     assert (zero != whole[2:6]).any()
+
+
+def test_live_draws_match_plain(emulated):
+    """With no ``noise`` the kernel's Philox draws and the plain version's
+    host copy of them (``cuda_pedigree.philox_step``) give the same
+    trace, at chain offset 1000."""
+    args, plan = _inputs(seed=3)
+    kw = dict(n_steps=3, seed=(5 << 32) | 0x9E3779B9, noise=None, chain_offset=1000)
+    t_k = K3._launch(*args, plan, **kw)
+    t_p = K3.pedigree_sampler_plain(*args, plan, **kw)
+    np.testing.assert_array_equal(t_k.numpy(), t_p.numpy())
+    assert (t_k[:, 1:] != t_k[:, :-1]).any()
