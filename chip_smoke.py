@@ -5,9 +5,10 @@ Usage: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 Builds the port's CUDA kernel libraries from ``mchap_tpu_torch/csrc``
 in parallel -- ``denovo_sampler.cu`` twice (K1, the de novo sampler,
 flat with K0, one mutation sweep; and K1 with its tempering ladder and
-prior), ``calling_sampler.cu`` (K2, the calling sampler) and
-``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) -- and runs
-twenty-eight phases, each printing its lines:
+prior), ``calling_sampler.cu`` (K2, the calling sampler),
+``pedigree_sampler.cu`` (K3, the pedigree Gibbs sampler) and
+``denovo_route_sampler.cu`` (K4, the torch de novo route's sampler) --
+and runs twenty-eight phases, each printing its lines:
 
 A. K1 vs its plain PyTorch version on the card, pinned noise;
 B. K1 with its own Philox stream vs exact enumeration;
@@ -48,12 +49,14 @@ U. K1 on read buckets whose state exceeds shared memory (P4 over 16,384
    reads, P8 over 4,096, with rungs and the prior) vs its plain version;
 V. K2 at the latency shape of phase G's launch (440 problems x 2 chains,
    R16, H6): kernel vs plain on its first steps, then timed;
-W. the torch de novo sampler (``ops/assemble_mcmc.py``, no kernel of its
-   own): ``fit_denovo_multi``'s route at ploidy 4 (K1), 14, with 9 rungs
-   and with a prior where one sample has F = 0 (the torch sampler); the
-   sampler vs exact enumeration on the card; ``mchap assemble
-   --use-dirmul-prior FILE`` on phase C's data with one sample at F = 0,
-   so every block takes it, and its ms per step eager and as a CUDA graph;
+W. the torch de novo route, K4 on the card: ``fit_denovo_multi``'s route
+   at ploidy 4 (K1), 14, with 9 rungs and with a prior where one sample
+   has F = 0 (K4 alone); K4 vs its plain version (``ops/assemble_mcmc``)
+   on a C-sized block at ploidy 16 and 1024 reads; K4 vs exact
+   enumeration; ``mchap assemble --use-dirmul-prior FILE`` on phase C's
+   data with one sample at F = 0, so every block takes K4, then K4's ms
+   per step at its larger call's shape beside the plain version's, eager
+   and as a CUDA graph, on the same draws;
 X. ``mchap call-exact`` end to end on phase C's reads with phase C's
    output VCF as the panel, the block path and (``--report GP``) the
    per-locus path;
@@ -63,24 +66,29 @@ Z. a block's problems over a list of devices (``parallel/``): K1 at
    phase S's shape (flat, and T = 3 with alpha), K2 at phase G's launch
    shape and K3 through the pedigree model at phase M's, each split
    three ways on the one card against the unsharded launch (identical
-   genotypes and llks); the torch routes the same way (phase W's larger
-   de novo call, a prior ``call``, Metropolis-Hastings ``call-pedigree``);
+   genotypes and llks); K4 on phase W's larger de novo call and the torch
+   routes (a prior ``call``, Metropolis-Hastings ``call-pedigree``) the
+   same way;
    ``mchap call`` as phase G in two processes on the card, rank 0 writing
    phase G's records and rank 1 none, and a prior ``call`` (the torch
    route) in two processes, rank 0 writing one process's records; the
    INFO pools on the card against the host formulas;
-live. each kernel (K1 flat and with 3 rungs and alpha, K0, K2, K3) with
-   its own Philox draws against its plain version drawing the same stream
-   (``utils.philox``) on the card, at a non-zero chain offset;
+live. each kernel (K1 flat and with 3 rungs and alpha, K0, K2, K3, and
+   K4 flat, with a prior where one problem has F = 0, with 10 rungs and
+   at ploidy 13) with its own Philox draws against its plain version
+   drawing the same stream (``utils.philox``) on the card, at a non-zero
+   chain or row offset;
 stream. the port's Philox (``keyed_uniforms``, and K2's and K3's
    ``philox_step``) on the card against the CPU, bit for bit.
 
 Each kernel's least time on the card (``bound_ms``) is the largest of
 its f32 operations over 67 TFLOP/s, its f64 operations over 33.5
-TFLOP/s, its transcendentals (exp, log) over the special-function units'
-rate (16 per SM per clock, CUDA C++ Programming Guide, compute
+TFLOP/s, its f32 transcendentals (exp, log) over the special-function
+units' rate (16 per SM per clock, CUDA C++ Programming Guide, compute
 capability 9.0, at the card's maximum SM clock) and its bytes over 3.35
-TB/s; operations are counted from the kernel's source at the phase's
+TB/s; K4's f64 exp, log and log1p count as the f64 operations of their
+instruction sequences, read from a probe's SASS at build time
+(``_f64_math_ops``); operations are counted from the kernel's source at the phase's
 shapes (``*_work``), leaving out work that depends on the data
 (accepted moves, gated structural steps, gamete rows), so the bound
 stays a lower bound.  The line before last is a JSON object describing
@@ -302,17 +310,20 @@ def phase_b(device):
 def _reset_launches():
     from mchap_tpu_torch.ops import cuda_calling as KC
     from mchap_tpu_torch.ops import cuda_denovo as K
+    from mchap_tpu_torch.ops import cuda_denovo_route as KR
     from mchap_tpu_torch.ops import cuda_pedigree as K3
 
     K.denovo_sampler.launches = 0
     K.mutation_sweep.launches = 0
     KC.calling_sampler.launches = 0
     K3.pedigree_sampler.launches = 0
+    KR.denovo_route_sampler.launches = 0
 
 
 def _launches():
     from mchap_tpu_torch.ops import cuda_calling as KC
     from mchap_tpu_torch.ops import cuda_denovo as K
+    from mchap_tpu_torch.ops import cuda_denovo_route as KR
     from mchap_tpu_torch.ops import cuda_pedigree as K3
 
     return dict(
@@ -320,6 +331,7 @@ def _launches():
         calling_sampler=KC.calling_sampler.launches,
         mutation_sweep=K.mutation_sweep.launches,
         pedigree_sampler=K3.pedigree_sampler.launches,
+        denovo_route_sampler=KR.denovo_route_sampler.launches,
     )
 
 
@@ -1689,31 +1701,76 @@ def _recording(module, name):
 
 
 def _denovo_sampler_calls():
-    """Record the arguments of every call of the torch de novo sampler
-    made by ``models/assemble.py``."""
+    """Record the arguments of every call of the torch de novo route's
+    wrapper (K4's, ``ops/cuda_denovo_route.denovo_route_sampler``) made
+    by ``models/assemble.py``."""
+    from mchap_tpu_torch.models import assemble as MA
+
+    return _recording(MA, "denovo_route_sampler")
+
+
+def _plain_route_calls():
+    """Record every call of the route's plain version
+    (``ops/assemble_mcmc.denovo_sampler``), which a card run must not make
+    outside the comparisons."""
     from mchap_tpu_torch.ops import assemble_mcmc as M
 
     return _recording(M, "denovo_sampler")
 
 
-def _time_torch_sampler(args, kw, cuda_graph, steps):
-    """ms per step of the torch de novo sampler on ``args``, eager or
-    through its CUDA graph: the difference of two runs of ``steps``
-    steps, so that set-up and capture drop out; and the longer run's
-    cold trace."""
+def _time_route(fn, args, kw, steps, warmup=False):
+    """ms per step of ``fn`` (K4's wrapper, or the plain version eager or
+    through its CUDA graph) on the route call ``args``: the difference of
+    two runs of ``steps`` steps, so that set-up drops out; and the longer
+    run's cold trace.  ``warmup`` first runs the shorter length once, so
+    that the allocator holds the buffers before the timed runs (a run of
+    K4 takes milliseconds, and one allocation moved a reading by tens)."""
     import torch
 
-    from mchap_tpu_torch.ops import assemble_mcmc as M
-
     times, out = [], None
+    if warmup:
+        fn(5, *args[1:], **dict(kw, n_steps=steps[0], burn=0))
     for n in steps:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = M.denovo_sampler(5, *args[1:], **dict(kw, n_steps=n, burn=0,
-                                                     cuda_graph=cuda_graph))
+        out = fn(5, *args[1:], **dict(kw, n_steps=n, burn=0))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return 1e3 * (times[1] - times[0]) / (steps[1] - steps[0]), out
+
+
+def _plain_route(cuda_graph):
+    from mchap_tpu_torch.ops import assemble_mcmc as M
+
+    return lambda *args, **kw: M.denovo_sampler(*args, cuda_graph=cuda_graph, **kw)
+
+
+def _route_diff(a, b):
+    """(genotypes identical, largest |llk difference|) of route traces."""
+    import torch
+
+    same = all(x[0].shape == y[0].shape and torch.equal(x[0], y[0]) for x, y in zip(a, b))
+    err = max(float((x[1] - y[1]).abs().max()) if x[1].numel() else 0.0 for x, y in zip(a, b))
+    return same, err
+
+
+def _route_work(S, C, T, P, NB, R, A, math_ops):
+    """K4 per step, counted from denovo_route_sampler.cu: every site of
+    the mutation sweep, per row and
+    read: the other rows' logsumexp (P - 1 subtractions, exps and adds, an
+    add and a log), the base (a subtraction) and per allele a logaddexp
+    (an add, a subtraction, an exp, a log1p, an add), a subtraction, a
+    multiply and an add.  exp, log and log1p count as the f64 operations
+    their instruction sequences hold on this card (``math_ops``, from
+    ``_f64_math_ops``).  The structural steps depend on the draws (gates,
+    intervals, valid options) and are left out, so the bound is a lower
+    bound.  Bytes: the inputs once, one step's trace."""
+    per_read = (2 * (P - 1) + 2 + 6 * A + math_ops["exp"] * (P - 1 + A)
+                + math_ops["log"] + math_ops["log1p"] * A)
+    f64 = S * C * T * P * NB * R * per_read
+    nbytes = (8 * S * NB * R * A + 8 * S * R + 4 * S * NB + 8 * S * NB + S * C * P * NB
+              + S * C * (P * NB + 8))
+    return dict(flops=0.0, transcendentals=0.0, bytes=float(nbytes), f64=float(f64))
 
 
 def _w_problems(rng, ploidy, n_problems=3, n_pos=5):
@@ -1733,7 +1790,8 @@ def _w_problems(rng, ploidy, n_problems=3, n_pos=5):
 def phase_w_routes(device):
     """``fit_denovo_multi`` chooses its route before any launch: ploidy 4
     to K1; ploidy 14, 9 rungs and a prior with one sample at F = 0 to the
-    torch de novo sampler, K1's count unmoved."""
+    torch de novo route, which on the card is K4 alone: K1's count and the
+    plain version's calls unmoved."""
     import numpy as np
 
     from mchap_tpu_torch.models.assemble import fit_denovo_multi
@@ -1753,9 +1811,11 @@ def phase_w_routes(device):
             problems = [dict(p, inbreeding=f) for p, f in zip(problems, inbreeding)]
         fallback.PATHS.clear()
         _reset_launches()
-        traces = fit_denovo_multi(problems, ploidy, steps=60, chains=2, burn=20,
-                                  random_seed=1, device=device, **kw)
-        k1 = _launches()["denovo_sampler"]
+        with _plain_route_calls() as plain:
+            traces = fit_denovo_multi(problems, ploidy, steps=60, chains=2, burn=20,
+                                      random_seed=1, device=device, **kw)
+        launches = _launches()
+        k1, k4 = launches["denovo_sampler"], launches["denovo_route_sampler"]
         paths = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
         # K1's route tabulates its trace: (chains, kept steps, P, NB) either way
         shapes = sorted({
@@ -1763,26 +1823,33 @@ def phase_w_routes(device):
             else (t.states.shape[0], t.kept) + t.states.shape[2:] for t in traces
         })
         finite = all(np.isfinite(t.llks).all() for t in traces)
-        print(f"phase W (route, {label}): K1 launches {k1}, de novo routes {paths},"
-              f" trace shapes {shapes}, llks finite {finite}", flush=True)
-        want = (1, ["cuda"]) if label == "ploidy 4" else (0, ["torch"])
-        ok &= (k1, paths) == want and shapes == [(2, 40, ploidy, 5)] and finite
+        print(f"phase W (route, {label}): K1 launches {k1}, K4 launches {k4}, plain-version"
+              f" calls {len(plain)}, de novo routes {paths}, trace shapes {shapes}, llks"
+              f" finite {finite}", flush=True)
+        want = (1, 0, ["cuda"]) if label == "ploidy 4" else (0, k4 > 0 and k4, ["cuda-route"])
+        ok &= ((k1, k4, paths) == want and not plain and shapes == [(2, 40, ploidy, 5)]
+               and finite)
     if not ok:
         _fail("phase W (routes)")
 
 
 def phase_w_block(device, ploidy=16, n_reads=1024, n_problems=440, steps=3):
-    """The torch de novo sampler on a block of phase C's size (440
-    problems x 2 chains) at ploidy 16 and 1024 reads per problem, where
-    one interval step over the whole block would need about 110 GB of
-    [B, K, R, P] temporaries: ``rows_per_chunk`` splits it into pieces
-    that fit a quarter of the free memory.  Gate: the torch route, the
-    block split, the peak below the card's memory, finite llks."""
+    """The torch de novo route on a block of phase C's size (440 problems
+    x 2 chains) at ploidy 16 and 1024 reads per problem: K4 through
+    ``fit_denovo_multi``, then K4 and its plain version on that call's
+    arguments.  The plain version must split the block into pieces
+    (``rows_per_chunk``): one of its interval steps over the whole block
+    would need about 110 GB of [B, K, R, P] temporaries; K4 keeps about
+    260 KB per row in device memory (``rows_per_piece``).  Gate: the
+    route on K4 alone, finite llks of the expected shape, peaks below the
+    card's memory, and K4's trace identical to the plain version's
+    (genotypes equal, llks within 1e-9).  Returns that llk difference."""
     import numpy as np
     import torch
 
     from mchap_tpu_torch.models.assemble import fit_denovo_multi
     from mchap_tpu_torch.ops import assemble_mcmc as M
+    from mchap_tpu_torch.ops import cuda_denovo_route as KR
     from mchap_tpu_torch.testing import simulate_reads
     from mchap_tpu_torch.utils import fallback
 
@@ -1795,45 +1862,80 @@ def phase_w_block(device, ploidy=16, n_reads=1024, n_problems=440, steps=3):
         reads = simulate_reads(haps, n_alleles=2, n_reads=n_reads, seed=i)
         distinct.append(dict(reads=reads, counts=np.ones(len(reads)), n_alleles=[2] * n_pos))
     problems = [distinct[i % 22] for i in range(n_problems)]
-    chunks, real = [], M.rows_per_chunk
+    pieces, chunks = [], []
+    real_piece, real_chunk = KR.rows_per_piece, M.rows_per_chunk
 
-    def spy(*args):
-        chunks.append(real(*args))
+    def spy_piece(*args):
+        pieces.append(real_piece(*args))
+        return pieces[-1]
+
+    def spy_chunk(*args):
+        chunks.append(real_chunk(*args))
         return chunks[-1]
 
     fallback.PATHS.clear()
+    _reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    M.rows_per_chunk = spy
+    KR.rows_per_piece = spy_piece
     t = time.perf_counter()
     try:
-        traces = fit_denovo_multi(problems, ploidy, steps=steps, chains=2, burn=1,
-                                  random_seed=1, device=device)
+        with _denovo_sampler_calls() as calls, _plain_route_calls() as plain:
+            traces = fit_denovo_multi(problems, ploidy, steps=steps, chains=2, burn=1,
+                                      random_seed=1, device=device)
     finally:
-        M.rows_per_chunk = real
+        KR.rows_per_piece = real_piece
     wall = time.perf_counter() - t
-    peak = torch.cuda.max_memory_allocated(device)
+    k4_peak = torch.cuda.max_memory_allocated(device)
+    k4 = _launches()["denovo_route_sampler"]
     total = torch.cuda.get_device_properties(device).total_memory
     rows = 2 * n_problems
     routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
     shapes = sorted({t.genotypes.shape for t in traces})
     finite = all(np.isfinite(t.llks).all() for t in traces)
     print(f"phase W (block, P{ploidy} R{n_reads}, {n_problems} problems x 2 chains):"
-          f" routes {routes}, rows per piece {chunks} of {rows}, peak"
-          f" {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB, trace shapes {shapes},"
-          f" llks finite {finite}, {wall:.2f} s for {steps} steps", flush=True)
-    if (routes != ["torch"] or len(chunks) != 1 or not chunks[0] < rows
-            or peak >= total or shapes != [(2, steps - 1, ploidy, n_pos)] or not finite):
+          f" routes {routes}, K4 launches {k4}, plain-version calls {len(plain)}, K4 rows"
+          f" per piece {pieces} of {rows}, peak {k4_peak / 2**30:.2f} GiB of"
+          f" {total / 2**30:.2f} GiB, trace shapes {shapes}, llks finite {finite},"
+          f" {wall:.2f} s for {steps} steps", flush=True)
+    if (routes != ["cuda-route"] or k4 < 1 or plain or len(calls) != 1 or pieces != [rows]
+            or k4_peak >= total or shapes != [(2, steps - 1, ploidy, n_pos)] or not finite):
         _fail("phase W (block)")
+
+    args, kw = calls[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = KR.denovo_route_sampler(*args, **kw)
+    torch.cuda.synchronize()
+    k4_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats(device)
+    M.rows_per_chunk = spy_chunk
+    t = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            want = M.denovo_sampler(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        M.rows_per_chunk = real_chunk
+    plain_s = time.perf_counter() - t
+    plain_peak = torch.cuda.max_memory_allocated(device)
+    same, err = _route_diff([got], [want])
+    print(f"phase W (block, K4 vs plain): genotypes identical {same}, max |llk difference|"
+          f" {err:.3g} (bound 1e-9); K4 {k4_s:.2f} s, plain {plain_s:.2f} s for {steps}"
+          f" steps; plain rows per piece {chunks} of {rows}, peak"
+          f" {plain_peak / 2**30:.2f} GiB", flush=True)
+    if (not same or not err <= 1e-9 or len(chunks) != 1 or not chunks[0] < rows
+            or plain_peak >= total):
+        _fail("phase W (block, K4 vs plain)")
+    return err
 
 
 def phase_w_exact(device, chains=512, steps=180, burn=60):
-    """The torch de novo sampler on the card against exact enumeration
-    over the full haplotype space, on the CPU tests' cases
+    """The torch de novo route (K4) on the card against exact
+    enumeration over the full haplotype space, on the CPU tests' cases
     (tests/test_torch_assemble_mcmc.py): ploidy 14 over 2 biallelic SNVs,
-    9 rungs, F = 0 and F = 0.2 in one block, two intervals.  CUDA's
-    Philox stream is not the CPU's, so this is the sampler's check on
-    the card.  Bound: 0.05 per genotype.  512 chains x 120 kept steps
+    9 rungs, F = 0 and F = 0.2 in one block, two intervals.  This is the
+    kernel's check against the model itself, not its plain version.  Bound: 0.05 per genotype.  512 chains x 120 kept steps
     (was 256 x 240): as many samples, in fewer steps, since a step costs
     about the same for any chain count."""
     import numpy as np
@@ -1891,27 +1993,29 @@ def phase_w_exact(device, chains=512, steps=180, burn=60):
         print(f"phase W (exact, {label}): routes {routes}, max |sampled - exact| per"
               f" genotype {max(errs):.4f} (bound 0.05) over {chains} chains x"
               f" {steps - burn} kept steps", flush=True)
-        if routes != ["torch"] or not max(errs) < 0.05:
+        if routes != ["cuda-route"] or not max(errs) < 0.05:
             _fail(f"phase W (exact, {label})")
         worst = max(worst, max(errs))
     return worst
 
 
-def phase_w_assemble(device, data):
+def phase_w_assemble(device, data, card=None):
     """``mchap assemble --use-dirmul-prior FILE`` end to end on phase C's
     reads, the first sample at F = 0 and the others at 0.1 (breeders
     write such a file when one parent is outbred): every block takes the
-    torch de novo sampler, in two calls: the 15 biallelic loci's block and
-    the 5 triallelic loci's (A = 3).  Then the sampler's ms per step at the
-    larger call's shape, eager and through its CUDA graph, with the same
-    draws.  Returns those times and, under ``route_calls``, the route's
+    torch de novo route, on the card K4, in two calls: the 15 biallelic
+    loci's block and the 5 triallelic loci's (A = 3).  Then, at the larger
+    call's shape, K4's ms per step and its plain version's, eager and
+    through its CUDA graph, on the same draws: the three traces must
+    agree (K4 with the graph's: genotypes identical, llks within 1e-9).
+    Returns those times, K4's bound at that shape (with ``card``), the
+    main path's launch counts and, under ``route_calls``, the route's
     calls (``models/assemble._fit_denovo_batch_torch``'s arguments) for
     phase Z."""
-    import torch
-
     from test_torch_fixtures import parse_vcf_records
 
     from mchap_tpu_torch.models import assemble as MA
+    from mchap_tpu_torch.ops import cuda_denovo_route as KR
     from mchap_tpu_torch.utils import fallback
 
     n_loci = 20
@@ -1923,14 +2027,14 @@ def phase_w_assemble(device, data):
         "--targets", data["targets"], "--variants", data["variants"],
         "--reference", data["reference"], "--use-dirmul-prior", str(path), *W_STEPS,
     ]
-    with (_denovo_sampler_calls() as calls,
+    with (_denovo_sampler_calls() as calls, _plain_route_calls() as plain,
           _recording(MA, "_fit_denovo_batch_torch") as route_calls):
         rc, vcf, wall, launches, timers = _run_cli(argv)
     (WORK / "assemble" / "out_mixed_f.vcf").write_text(vcf)
     records = parse_vcf_records(vcf)
     agree, total = _truth_agreement(records, data["truth"])
     frac = agree / max(total, 1)
-    k1 = launches["denovo_sampler"]
+    k1, k4 = launches["denovo_sampler"], launches["denovo_route_sampler"]
     routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
     steps = int(W_STEPS[W_STEPS.index("--mcmc-steps") + 1])
     alleles = sorted(args[3].shape[-1] for args, _ in calls)
@@ -1938,37 +2042,54 @@ def phase_w_assemble(device, data):
     print(
         f"phase W: assemble --use-dirmul-prior (F = 0 for {data['samples'][0]}, 0.1"
         f" for the rest) {' '.join(W_STEPS)} exit {rc}, {len(records)} records, K1"
-        f" launches {k1}, de novo routes {routes}, sampler calls {len(calls)} at A ="
-        f" {alleles}, GT =="
+        f" launches {k1}, K4 launches {k4}, plain-version calls {len(plain)}, de novo"
+        f" routes {routes}, route calls {len(calls)} at A = {alleles}, GT =="
         f" truth {agree}/{total} = {frac:.4f} (bound 0.90); wall {wall:.2f} s ="
-        f" {n_loci / wall:.3f} loci/s; torch sampler {sampler_s:.2f} s ="
+        f" {n_loci / wall:.3f} loci/s; sampler stage {sampler_s:.2f} s ="
         f" {1e3 * sampler_s / steps:.2f} ms per step over its {len(calls)} calls",
         flush=True,
     )
     for line in timers.summary_lines():
         print("phase W timing:", line, flush=True)
-    if (rc != 0 or len(records) != n_loci or k1 != 0 or routes != ["torch"]
-            or alleles != [2, 3] or total != 440 or frac < 0.90):
+    if (rc != 0 or len(records) != n_loci or k1 != 0 or k4 < 1 or plain
+            or routes != ["cuda-route"] or alleles != [2, 3] or total != 440
+            or frac < 0.90):
         _fail("phase W (assemble)")
 
     args, kw = max(calls, key=lambda c: c[0][2].numel())
     S, C, P, NB = args[2].shape
-    shape = dict(S=S, chains=C, P=P, NB=NB, R=args[3].shape[1], A=args[3].shape[-1],
-                 rungs=len(args[7]), prior=kw.get("inbreeding") is not None)
-    # eager steps take about 0.45 s each, graphed ones about 0.08 s; a
-    # step's draws do not depend on the run's length, so the eager trace
-    # must equal the graphed one's first steps
-    eager_ms, eager = _time_torch_sampler(args, kw, cuda_graph=False, steps=(2, 6))
-    graph_ms, graph = _time_torch_sampler(args, kw, cuda_graph=True, steps=(3, 23))
-    same = all(torch.equal(a, b[:, :, :a.shape[2]]) for a, b in zip(eager, graph))
-    print(f"phase W sampler at the largest call's shape {json.dumps(shape)}: eager"
-          f" {eager_ms:.2f} ms per step, CUDA graph {graph_ms:.2f} ms per step;"
-          f" traces identical {same}", flush=True)
-    if not same:
-        _fail("phase W (graph vs eager)")
-    return dict(eager_ms=eager_ms, graph_ms=graph_ms, shape=shape,
-                sampler_ms_per_step=1e3 * sampler_s / steps, wall=wall,
-                route_calls=route_calls)
+    R, A, T = args[3].shape[1], args[3].shape[-1], len(args[7])
+    shape = dict(S=S, chains=C, P=P, NB=NB, R=R, A=A, rungs=T,
+                 prior=kw.get("inbreeding") is not None)
+    # K4 over 10 and 110 steps after a warm-up, the graphed plain version
+    # over 3 and 23, the eager one (about 0.2-0.45 s a step) over 2 and 6; a
+    # step's draws do not depend on the run's length, so shorter traces are
+    # longer ones' starts
+    k4_ms, k4_out = _time_route(KR.denovo_route_sampler, args, kw, steps=(10, 110),
+                                warmup=True)
+    eager_ms, eager = _time_route(_plain_route(False), args, kw, steps=(2, 6))
+    graph_ms, graph = _time_route(_plain_route(True), args, kw, steps=(3, 23))
+    same, err = _route_diff([(k4_out[0][:, :, :23], k4_out[1][:, :, :23])], [graph])
+    n = eager[0].shape[2]
+    eager_same, eager_err = _route_diff([eager], [(graph[0][:, :, :n], graph[1][:, :, :n])])
+    out = dict(ms=k4_ms, plain_ms=graph_ms, plain_eager_ms=eager_ms, shape=shape,
+               max_abs_err=err, sampler_ms_per_step=1e3 * sampler_s / steps, wall=wall,
+               launches=launches, route_calls=route_calls)
+    bound = ""
+    if card is not None:
+        work = _route_work(S, C, T, P, NB, R, A, card["f64_math"])
+        out["bound_ms"], out["bound_by"] = _bound(work, card)
+        bound = (f"; bound {out['bound_ms']:.4g} ms per step by {out['bound_by']}"
+                 f" ({work['f64']:.3g} f64 operations, {work['bytes']:.3g} bytes), K4 at"
+                 f" {out['bound_ms'] / k4_ms:.2%} of it")
+    print(f"phase W route at the largest call's shape {json.dumps(shape)}: K4"
+          f" {k4_ms:.3f} ms per step, plain version {eager_ms:.2f} eager and"
+          f" {graph_ms:.2f} through its CUDA graph; K4 vs graph genotypes identical {same},"
+          f" max |llk difference| {err:.3g} (bound 1e-9); eager vs graph identical"
+          f" {eager_same}, {eager_err:.3g}{bound}", flush=True)
+    if not (same and err <= 1e-9 and eager_same and eager_err == 0.0):
+        _fail("phase W (K4 vs plain)")
+    return out
 
 
 def phase_x(device, data):
@@ -2094,7 +2215,8 @@ def phase_live(device, C=512, STEPS=30):
     steps), 512 chains each, seed ``LIVE_SEED``, chain offset
     ``LIVE_OFFSET`` (K0's launch has none).  Genotypes must be identical
     and the llks (K0: also rh; K3 records none) equal, as in the pinned
-    phases.  Returns the largest difference by kernel name."""
+    phases.  Then K4 (``_live_route``).  Returns the largest difference by
+    kernel name."""
     import numpy as np
     import torch
 
@@ -2156,7 +2278,68 @@ def phase_live(device, C=512, STEPS=30):
     err = float((t_k.long() - t_p.long()).abs().max().item())
     moved = (t_k[:, 1:] != t_k[:, :-1]).flatten(1).any(dim=1).float().mean().item()
     out["pedigree_sampler"] = _live_report("K3 (alleles)", same, err, moved)
+    out["denovo_route_sampler"] = _live_route(device, STEPS)
     return out
+
+
+def _route_inputs(rng, S, C, P, NB, R, A, device):
+    """A torch de novo route call's tensors: reads from P random
+    haplotypes per problem with 5% errors, random starts, the last
+    position of problem 0 fixed, a uniform break-count distribution."""
+    import numpy as np
+    import torch
+
+    reads = np.full((S, R, NB, A), 0.05 / (A - 1))
+    for s in range(S):
+        haps = rng.integers(0, A, (P, NB))
+        np.put_along_axis(reads[s], haps[rng.integers(0, P, R)][:, :, None], 0.95, axis=2)
+    n_alleles = np.full((S, NB), A)
+    n_alleles[0, -1] = 1
+    arrays = (rng.integers(0, A, (S, C, P, NB)), np.log(reads), np.ones((S, R)), n_alleles,
+              np.full((S, NB), 1.0 / NB))
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in arrays]
+
+
+def _live_route(device, STEPS):
+    """K4 with its own draws against its plain version drawing the same
+    keyed stream, about 512 rows x ``STEPS`` steps at row offset
+    ``LIVE_OFFSET``: flat (64 problems x 8 chains, P4 NB8 R32), a
+    Dirichlet-multinomial prior with one problem at F = 0, 10 rungs (17 x
+    3 x 10) and ploidy 13 (64 x 8, NB4 R16).  Genotypes must be identical
+    and llks within 1e-9 (f64; the sums over reads run in another
+    order).  Returns the largest llk difference."""
+    import numpy as np
+    import torch
+
+    from mchap_tpu_torch.ops import assemble_mcmc as M
+    from mchap_tpu_torch.ops import cuda_denovo_route as KR
+
+    rng = np.random.default_rng(54)
+    f0 = torch.full((64,), 0.1, dtype=torch.float64, device=device)
+    f0[5] = 0.0
+    worst = 0.0
+    for label, (S, C, P, NB, R), temps, ib in (
+        ("flat", (64, 8, 4, 8, 32), (1.0,), None),
+        ("prior, one problem at F = 0", (64, 8, 4, 8, 32), (1.0,), f0),
+        ("10 rungs", (17, 3, 4, 8, 32), tuple(round(0.1 * i, 1) for i in range(1, 11)), None),
+        ("ploidy 13", (64, 8, 13, 4, 16), (1.0,), None),
+    ):
+        args = _route_inputs(rng, S, C, P, NB, R, 2, device)
+        kw = dict(n_steps=STEPS, inbreeding=ib)
+        got = KR.denovo_route_sampler(LIVE_SEED, LIVE_OFFSET, *args, temps, **kw)
+        with torch.inference_mode():
+            want = M.denovo_sampler(LIVE_SEED, LIVE_OFFSET, *args, temps, **kw)
+        torch.cuda.synchronize()
+        chains = (got[0] == want[0]).flatten(2).all(dim=2).float().mean().item()
+        err = float((got[1] - want[1]).abs().max())
+        moved = (got[0][:, :, 1:] != got[0][:, :, :-1]).flatten(2).any(dim=2).float().mean().item()
+        print(f"phase live (K4 {label}, {S * C * len(temps)} rows): kernel vs plain, both"
+              f" drawing the keyed stream, identical chains {chains:.4f}; max |kernel - plain|"
+              f" {err:.3g} (bound 1e-9); chains that moved {moved:.3f}", flush=True)
+        if chains < 1.0 or not err <= 1e-9 or not moved > 0:
+            _fail(f"phase live (K4 {label})")
+        worst = max(worst, err)
+    return worst
 
 
 def phase_stream(device, rows=2048, n=1024):
@@ -2306,6 +2489,36 @@ def _z_route(label, run, site, device):
     return err
 
 
+def _z_k4(label, run, device):
+    """``run(devices)`` (the torch de novo route) on one card unsharded and
+    split Z_SHARDS ways: each shard one call of K4's wrapper keyed by its
+    first row in the block and no call of the plain version; genotypes
+    identical and llk difference 0 required (a row's arithmetic does not
+    depend on its shard)."""
+    from mchap_tpu_torch.models import assemble as MA
+
+    out = {}
+    for n in (1, Z_SHARDS):
+        _reset_launches()
+        with _recording(MA, "denovo_route_sampler") as calls, _plain_route_calls() as plain:
+            t = time.perf_counter()
+            out[n] = run([device] * n)
+            wall = time.perf_counter() - t
+        launches = _launches()["denovo_route_sampler"]
+        seen = [(str(a[3].device), int(a[3].shape[0]), a[1]) for a, _ in calls]
+        print(f"phase Z ({label}, {n} shard{'s' * (n > 1)}): K4 launches {launches},"
+              f" (device, problems, row offset) {seen}, plain-version calls {len(plain)};"
+              f" {wall:.2f} s", flush=True)
+        if len(calls) != n or launches < n or plain:
+            _fail(f"phase Z ({label}): {len(calls)} K4 calls for {n} shards")
+    err = _same_traces(out[Z_SHARDS], out[1])
+    print(f"phase Z ({label}): {Z_SHARDS} shards vs 1, genotypes identical"
+          f" {err != float('inf')}, max |llk difference| {err:.3g} (bound 0)", flush=True)
+    if err != 0.0:
+        _fail(f"phase Z ({label})")
+    return err
+
+
 def _two_rank_call(argv, prefix, rank_code=None):
     """``mchap call`` (``argv``) in two processes on the card through the
     launcher (gloo): returns (exit codes, wall s, rank 0's VCF records,
@@ -2340,7 +2553,7 @@ def phase_z(device, data, w_calls, S=LATENCY["S"], K1_STEPS=LATENCY["steps"],
     with alpha 0.05), tabulation on; K2 at ``LATENCY_K2`` over 2000 steps;
     K3 through the pedigree model at phase M's 128 loci x 1 chain, 500
     steps.  Then the torch routes the same way: phase W's larger call
-    (``w_calls``, 330 problems x 6 chains) cut to 10 steps, a
+    (``w_calls``, 330 problems x 6 chains) through K4, cut to 10 steps, a
     Dirichlet-multinomial prior ``call`` at ``LATENCY_K2`` over 100 steps
     and Metropolis-Hastings ``call-pedigree`` on K3's 128 loci over 30.
     Genotypes and llks must be identical (every sampler keys its draws
@@ -2424,12 +2637,11 @@ def phase_z(device, data, w_calls, S=LATENCY["S"], K1_STEPS=LATENCY["steps"],
     # phase G's launch shape, Metropolis-Hastings `call-pedigree`
     args, kw = max(w_calls, key=lambda c: c[0][0].shape[0])
     w_args = inspect.signature(MA._fit_denovo_batch_torch).bind(*args, **kw).arguments
-    errs["torch de novo"] = _z_route(
-        f"torch de novo, phase W's {w_args['reads'].shape[0]} problems x"
-        f" {w_args['chains']} chains, {W_Z_STEPS} steps",
+    errs["denovo_route_sampler"] = _z_k4(
+        f"K4, phase W's {w_args['reads'].shape[0]} problems x {w_args['chains']} chains,"
+        f" {W_Z_STEPS} steps",
         lambda devices: MA._fit_denovo_batch_torch(**dict(
-            w_args, steps=W_Z_STEPS, burn=W_Z_STEPS // 2, devices=devices)),
-        None, device)
+            w_args, steps=W_Z_STEPS, burn=W_Z_STEPS // 2, devices=devices)), device)
     H = shape["H"]
     errs["torch calling"] = _z_route(
         f"torch calling, DM prior, {S} problems x {shape['chains']} chains", lambda devices:
@@ -2515,14 +2727,51 @@ def _card():
                 clock_mhz=float(clock))
 
 
+F64_PROBE = r"""
+#include <math.h>
+extern "C" __global__ void probe_exp(const double* x, double* y) { y[threadIdx.x] = exp(x[threadIdx.x]); }
+extern "C" __global__ void probe_log(const double* x, double* y) { y[threadIdx.x] = log(x[threadIdx.x]); }
+extern "C" __global__ void probe_log1p(const double* x, double* y) { y[threadIdx.x] = log1p(x[threadIdx.x]); }
+"""
+
+
+def _f64_math_ops():
+    """f64 operations of the instruction sequences that ``exp``, ``log``
+    and ``log1p`` compile to for sm_90a: each function alone in a probe
+    kernel, its SASS (``cuobjdump -sass``) counted as 2 per DFMA and 1 per
+    DADD and DMUL (other instructions, as compares, left out)."""
+    import re
+    import shutil
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    WORK.mkdir(parents=True, exist_ok=True)
+    src, cubin = WORK / "f64_probe.cu", WORK / "f64_probe.cubin"
+    src.write_text(F64_PROBE)
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-o", str(cubin), str(src)], check=True, capture_output=True)
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
+                          text=True).stdout
+    ops = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0].replace("probe_", "")
+        ops[name] = (2 * len(re.findall(r"\bDFMA\b", part))
+                     + len(re.findall(r"\bD(?:ADD|MUL)\b", part)))
+    if sorted(ops) != ["exp", "log", "log1p"] or not all(ops.values()):
+        _fail(f"f64 probe: {ops}")
+    return ops
+
+
 def _build_all():
-    """Build the four kernel libraries at once (one nvcc each; K1's
-    source twice, flat with K0 and with its ladder), then print each
-    build's time and ptxas's register lines."""
+    """Build the five kernel libraries at once (one nvcc each; K1's
+    source twice, flat with K0 and with its ladder), and the f64 probe
+    of ``_f64_math_ops``, then print each build's time and ptxas's
+    register lines; returns the probe's counts."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mchap_tpu_torch.ops import cuda_calling as KC
     from mchap_tpu_torch.ops import cuda_denovo as K
+    from mchap_tpu_torch.ops import cuda_denovo_route as KR
     from mchap_tpu_torch.ops import cuda_pedigree as K3
 
     def timed(load):
@@ -2535,15 +2784,29 @@ def _build_all():
         ("K1 ladder", lambda: K.load_library(ladder=True), K.build_log_path(ladder=True)),
         ("K2", KC.load_library, KC.build_log_path()),
         ("K3", K3.load_library, K3.build_log_path()),
+        ("K4", KR.load_library, KR.build_log_path()),
     )
-    with ThreadPoolExecutor(len(builds)) as pool:
+    with ThreadPoolExecutor(len(builds) + 1) as pool:
+        probe = pool.submit(_f64_math_ops)
         times = list(pool.map(timed, [load for _, load, _ in builds]))
+        math_ops = probe.result()
     for (name, _, log), t in zip(builds, times):
         print(f"build: {name} built and loaded in {t:.1f} s", flush=True)
         for line in log.read_text().splitlines():
             spills = "stack frame" in line and not line.split(":")[-1].strip().startswith("0 bytes")
             if ("Used" in line and "registers" in line) or spills:
                 print(f"ptxas ({name}):", line.split("info    :")[-1].strip())
+    print(f"build: f64 operations per call on sm_90a {json.dumps(math_ops)}", flush=True)
+    return math_ops
+
+
+def phase_w(device, data, card):
+    """Phase W: the torch de novo route's choice, its block at ploidy 16,
+    exact enumeration and ``assemble`` on it (``phase_w_*``)."""
+    phase_w_routes(device)
+    block_err = phase_w_block(device)
+    phase_w_exact(device)
+    return dict(phase_w_assemble(device, data, card), block_err=block_err)
 
 
 def main():
@@ -2563,7 +2826,7 @@ def main():
         flush=True,
     )
     t0 = time.perf_counter()
-    _build_all()
+    card["f64_math"] = _build_all()
     print(f"time: build {time.perf_counter() - t0:.1f} s", flush=True)
 
     results = {}
@@ -2591,8 +2854,7 @@ def main():
         ("T", lambda: phase_t(device)),
         ("U", lambda: phase_u(device)),
         ("V", lambda: phase_v(device, card)),
-        ("W", lambda: (phase_w_routes(device), phase_w_block(device), phase_w_exact(device),
-                       phase_w_assemble(device, results["C"][1]))[-1]),
+        ("W", lambda: phase_w(device, results["C"][1], card)),
         ("X", lambda: phase_x(device, results["C"][1])),
         ("Y", lambda: phase_y(device, results["C"][1])),
         ("Z", lambda: phase_z(device, results["C"][1], results["W"]["route_calls"])),
@@ -2607,6 +2869,7 @@ def main():
     torch.cuda.synchronize()
     main_paths = (results["C"][0], results["G"], results["L"])
     err_i, i = results["I"]
+    w = results["W"]
     q = results["Q"]
     kernels = [
         # K1's flat single-rung instance, denovo_kernel: phase C's path
@@ -2636,6 +2899,13 @@ def main():
              replaces="mchap_tpu/ops/pallas_pedigree.py:609",
              launches=results["L"]["pedigree_sampler"], max_abs_err=results["J"],
              **results["M"]),
+        # K4: no Pallas kernel; the jitted XLA de novo sampler (phase W's path)
+        dict(name="denovo_route_sampler",
+             source="mchap_tpu_torch/csrc/denovo_route_sampler.cu",
+             replaces="mchap_tpu/ops/assemble_mcmc.py:481",
+             launches=w["launches"]["denovo_route_sampler"],
+             max_abs_err=max(w["block_err"], w["max_abs_err"]), ms=w["ms"],
+             plain_ms=w["plain_ms"], bound_ms=w["bound_ms"], bound_by=w["bound_by"]),
     ]
     z = results["Z"]["errs"]
     for k in kernels:

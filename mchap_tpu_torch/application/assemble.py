@@ -259,7 +259,8 @@ class program(baseclass.program):
                         data.sample_ploidy[sample],
                         haplotypes,
                         read_counts,
-                    ).numpy()
+                        device=self.device,
+                    ).cpu().numpy()
                     data.sampledata[VCF.FORMAT_GL][sample] = np.asarray(
                         natural_log_to_log10(llks)
                     )

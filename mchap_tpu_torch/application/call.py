@@ -147,7 +147,8 @@ class program(call_baseclass.program):
                 data.sample_ploidy[sample],
                 haplotypes,
                 data.read_counts[sample],
-            ).numpy()
+                device=self.device,
+            ).cpu().numpy()
             data.sampledata[VCF.FORMAT_GL][sample] = natural_log_to_log10(llks)
 
     def _sample_prior(self, data, setup, sample):

@@ -8,7 +8,8 @@ Writes phase C's dataset (``chip_smoke.c_dataset``: 22 tetraploid
 samples x 20 loci, 5 of them triallelic) and runs ``mchap assemble
 --use-dirmul-prior FILE`` on it in process, the first sample at F = 0
 and the rest at 0.1, so that every block takes the torch de novo
-sampler, once per setting (default: 4,300,150 4,240,120 6,200,100
+route (K4 on the card since it was ported; before, its plain version),
+once per setting (default: 4,300,150 4,240,120 6,200,100
 8,160,80 2,600,300; the first run also pays the process's warm-up).
 Prints the card's name and power limit, and per setting its GT == truth
 share over the 440 sample-calls, wall, sampler seconds and ms per step,
@@ -17,8 +18,9 @@ and the stage split.  This chose ``chip_smoke.W_STEPS``.
 With ``--roots``, each DIR is an unpacked checkout of this repository
 (``.`` for this one): for each in the order given, a fresh Python process
 in DIR runs DIR's own ``chip_smoke.phase_w_assemble`` (phase W's
-``assemble`` at ``W_STEPS``, then the sampler's ms per step at its
-largest call's shape, eager and through its CUDA graph) on DIR's copy of
+``assemble`` at ``W_STEPS``, then the route's ms per step at its
+largest call's shape: K4's where DIR has it, built before the run, and
+the plain version's eager and through its CUDA graph) on DIR's copy of
 phase C's dataset.  Give the DIRs as A B B A to see how far two runs of
 one checkout drift.  Needs one GPU.
 """
@@ -35,8 +37,14 @@ _ROOT_RUN = (
     "import json, sys, torch\n"
     "sys.path[:0] = ['.', 'tests']\n"
     "import chip_smoke as cs\n"
+    "try:  # K4, where the checkout has it, is built before the timed run\n"
+    "    from mchap_tpu_torch.ops import cuda_denovo_route\n"
+    "    cuda_denovo_route.load_library()\n"
+    "except ImportError:\n"
+    "    pass\n"
     "out = cs.phase_w_assemble(torch.device('cuda', 0), cs.c_dataset())\n"
-    "print('RESULT ' + json.dumps({k: v for k, v in out.items() if k != 'route_calls'}))\n"
+    "print('RESULT ' + json.dumps({k: v for k, v in out.items()\n"
+    "                              if k not in ('route_calls', 'launches')}))\n"
 )
 
 
@@ -51,7 +59,7 @@ def bench_roots(roots):
     for root in roots:
         out = _run(_ROOT_RUN, root)
         for line in out.splitlines():
-            if line.startswith("phase W") and "timing:" not in line:
+            if line.startswith("phase W"):  # its results and its stage split
                 print(f"{root}: {line}", flush=True)
         result = json.loads(out.split("RESULT ", 1)[1].splitlines()[0])
         runs.append(dict(root=root, **result))

@@ -9,8 +9,9 @@ route chosen before any device work:
   PyTorch version on the CPU, with the tempering ladder
   (``temperatures``) and the Dirichlet-multinomial prior (per-sample
   ``inbreeding``);
-- the torch de novo sampler (``ops/assemble_mcmc.py``) for the whole
-  block when ``cuda_denovo.k1_unsupported_reason`` names a reason (a
+- the torch de novo route for the whole block: K4
+  (``ops/cuda_denovo_route.py``) on a card, its plain version
+  (``ops/assemble_mcmc.py``) on the CPU, when ``cuda_denovo.k1_unsupported_reason`` names a reason (a
   prior where some sample has inbreeding 0, more than 8 rungs, ploidy
   above 12, a rung state above K1's slot) or a fixed interval count is
   asked for, as ``mchap_tpu`` sends those blocks to its XLA sampler.
@@ -36,6 +37,7 @@ from mchap_tpu_torch.ops.cuda_denovo import (
     next_pow2,
     unpack_genotype_trace,
 )
+from mchap_tpu_torch.ops.cuda_denovo_route import denovo_route_sampler
 from mchap_tpu_torch.ops.likelihood import MIN_LOG, prepare_reads
 from mchap_tpu_torch.ops.trace_tab import (
     decode_tabulated_states,
@@ -351,8 +353,10 @@ def _fit_denovo_batch_torch(
     seed, p_recomb, p_partial, p_full, device, burn=0, temperatures=(1.0,),
     inbreeding=None, devices="auto",
 ):
-    """Run all problems x chains x rungs through the torch de novo sampler
-    (``ops/assemble_mcmc.denovo_sampler``) on ``device``.
+    """Run all problems x chains x rungs through the torch de novo route
+    on ``device``: K4 (``ops/cuda_denovo_route.denovo_route_sampler``) on
+    a card, its plain version (``ops/assemble_mcmc.denovo_sampler``) on
+    the CPU.
 
     reads f64[S, R, NB, A] (nan gaps), counts [S, R], init [S, chains, P,
     NB], n_alleles_eff [S, NB] (1 = fixed), break_dist [S, NB],
@@ -363,7 +367,8 @@ def _fit_denovo_batch_torch(
     (problem, chain, rung) row draws from the stream keyed by the seed and
     its index in the whole block, so placement changes no result (each
     shard splits its rows against its own device's memory,
-    ``rows_per_chunk``).  The burn-in is dropped on the device.  Returns one untabulated trace of
+    ``cuda_denovo_route.rows_per_piece`` on a card, ``rows_per_chunk`` on
+    the CPU).  The burn-in is dropped on the device.  Returns one untabulated trace of
     the kept steps per problem.
     """
     log_reads = prepare_reads(reads).numpy()
@@ -387,7 +392,7 @@ def _fit_denovo_batch_torch(
         arrays.append(_host(inbreeding, torch.float64))
 
     def launch(sh):
-        return _sampler.denovo_sampler(
+        return denovo_route_sampler(
             seed, sh.start * chains * len(temperatures), *sh.arrays[:5], temperatures,
             n_steps=steps, burn=burn,
             inbreeding=sh.arrays[5] if inbreeding is not None else None,
@@ -478,7 +483,7 @@ def _fit_denovo_core(
     prior (None: flat).  ``n_intervals`` fixes the interval count of the
     structural steps (None: a discretised Beta(alpha, beta) over break
     counts).  The route is chosen here, before any device work: K1, or
-    the torch de novo sampler for the whole block where K1 cannot run it
+    the torch de novo route (K4) for the whole block where K1 cannot run it
     (``k1_unsupported_reason``) or ``n_intervals`` is given.  Initial
     genotypes and the sampler seed both come from one ``torch.Generator``
     seeded with ``random_seed``.  Either route spreads the block's
@@ -566,7 +571,7 @@ def _fit_denovo_core(
             inbreeding=None if inbreeding is None else np.asarray(inbreeding, float),
             devices=devices,
         )
-        _fallback.note_path("denovo", "torch")
+        _fallback.note_path("denovo", "cuda-route" if device.type == "cuda" else "torch")
     out = []
     kept = steps - burn
     for i in range(n_samples):

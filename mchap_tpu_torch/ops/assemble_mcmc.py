@@ -1,11 +1,13 @@
 """De novo assembly MCMC in batched PyTorch: the torch de novo sampler.
 
 Port of ``mchap_tpu/ops/assemble_mcmc.py`` (reference assemble/mutation.py,
-structural.py, tempering.py and mcmc.py).  It is the route for what K1
-(``ops/cuda_denovo.py``) does not run: a Dirichlet-multinomial prior where
-some sample has inbreeding 0, more than 8 tempering rungs, ploidy above
-12, a rung state above K1's slot, and a fixed number of intervals
-(``DenovoMCMC(n_intervals=...)``).
+structural.py, tempering.py and mcmc.py).  The torch de novo route runs
+what K1 (``ops/cuda_denovo.py``) does not: a Dirichlet-multinomial prior
+where some sample has inbreeding 0, more than 8 tempering rungs, ploidy
+above 12, a rung state above K1's slot, and a fixed number of intervals
+(``DenovoMCMC(n_intervals=...)``).  On a card that route is K4
+(``ops/cuda_denovo_route.py``); ``denovo_sampler`` here is its plain
+version, which the route runs on the CPU.
 
 Every chain of a call is one row of a batch axis ordered (problem, chain,
 rung), so each sub-step is a handful of tensor operations over all of
@@ -455,8 +457,9 @@ def intervals_from_draws(break_dist, u_breaks, points, order):
 
 
 def _random_permutations(u):
-    """A uniformly random permutation of 0..n-1 per row of u [B, n]."""
-    return torch.argsort(u, dim=-1)
+    """A uniformly random permutation of 0..n-1 per row of u [B, n]; equal
+    draws keep their index order (K4 ranks them the same way)."""
+    return torch.argsort(u, dim=-1, stable=True)
 
 
 def structural_sweep(genotype, rh, llk, starts, ends, lr_t, problem, counts_b,

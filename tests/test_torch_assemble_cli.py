@@ -69,10 +69,10 @@ def test_assemble_decisions_match_jax(dataset):
     [["--mcmc-temperatures", *[f"{0.1 * i:.1f}" for i in range(2, 10)]],
      ["--ploidy", "13"], ["mixed-inbreeding"]],
 )
-def test_unported_options_raise(dataset, extra, tmp_path):
+def test_k1_refused_options_match_jax(dataset, extra, tmp_path):
     """What K1 cannot run (9 rungs, ploidy 13, a prior with some samples
-    at inbreeding 0) takes the torch de novo sampler and reaches
-    mchap_tpu's decisions (GT and ALT, alleles named by sequence).
+    at inbreeding 0) takes the torch de novo route (on the CPU its plain
+    version) and reaches mchap_tpu's decisions (GT and ALT, alleles named by sequence).
 
     Ploidy 13 runs on data drawn at ploidy 13 (1 locus of 3 biallelic SNVs,
     520 reads per sample), where the dosage of each haplotype is clear;
@@ -103,7 +103,7 @@ def test_unported_options_raise(dataset, extra, tmp_path):
         assert _decisions(g)["alts"] == _decisions(w)["alts"], g["ID"]
 
 
-def test_unported_tools_exit_nonzero(capsys):
+def test_tools_parse_help(capsys):
     """An unknown tool exits 2; call-exact, find-snvs and atomize, which
     the port now runs, parse --help."""
     assert torch_main(["mchap", "bogus"]) == 2
