@@ -2038,7 +2038,8 @@ def phase_w_assemble(device, data, card=None):
     routes = sorted(path for (site, path) in fallback.PATHS if site == "denovo")
     steps = int(W_STEPS[W_STEPS.index("--mcmc-steps") + 1])
     alleles = sorted(args[3].shape[-1] for args, _ in calls)
-    sampler_s = timers.stages.get("device.torch_sampler", float("nan"))
+    # the torch route's launches and the wait for them: the only sampler here
+    sampler_s = sum(timers.stages.get(k, float("nan")) for k in ("device.launch", "device.sync"))
     print(
         f"phase W: assemble --use-dirmul-prior (F = 0 for {data['samples'][0]}, 0.1"
         f" for the rest) {' '.join(W_STEPS)} exit {rc}, {len(records)} records, K1"

@@ -163,7 +163,8 @@ class program(baseclass.program):
                 burn=self.mcmc_burn,
                 device=self.device,
             )
-            timing.count_sampler_steps(
+            timing.count(
+                "sampler.steps",
                 len(data.samples) * self.mcmc_chains * self.mcmc_steps
             )
             batch_traces = dict(zip(data.samples, traces))
@@ -334,7 +335,8 @@ class program(baseclass.program):
                     burn=self.mcmc_burn,
                     device=self.device,
                 )
-                timing.count_sampler_steps(
+                timing.count(
+                    "sampler.steps",
                     len(items) * self.mcmc_chains * self.mcmc_steps
                 )
                 for (idx, sample, _), t in zip(items, fitted):
@@ -349,9 +351,11 @@ class program(baseclass.program):
                         for sample in data.samples
                         if (idx, sample) in traces
                     }
-                    self.call_sample_genotypes(data, traces=locus_traces or None)
-                    self.sumarise_vcf_record(data)
-                    results.append(data.format_vcf_record())
+                    with timing.stage("posterior.samples", locus=locus.name):
+                        self.call_sample_genotypes(data, traces=locus_traces or None)
+                    with timing.stage("vcf.record", locus=locus.name):
+                        self.sumarise_vcf_record(data)
+                        results.append(data.format_vcf_record())
                 except Exception as e:
                     message = LOCUS_ASSEMBLY_ERROR.format(
                         name=locus.name,

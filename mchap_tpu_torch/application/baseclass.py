@@ -165,6 +165,30 @@ class program:
             precision=self.precision,
         )
 
+    def _extract_sample_reads(self, data, sample):
+        """The (chars, quals) of one sample's reads at the locus's SNVs,
+        over each of its alignment files."""
+        pairs = data.sample_bams[sample]
+        read_chars, read_quals = [], []
+        for name, path in pairs:
+            alignment_file = self._alignment_file(path)
+            chars, quals = extract_read_variants(
+                data.locus,
+                alignment_file=alignment_file,
+                samples=name,
+                id=self.read_group_field,
+                min_quality=self.mapping_quality,
+                skip_duplicates=self.skip_duplicates,
+                skip_qcfail=self.skip_qcfail,
+                skip_supplementary=self.skip_supplementary,
+            )[name]
+            read_chars.append(chars)
+            read_quals.append(quals)
+        if len(pairs) > 0:
+            return np.concatenate(read_chars), np.concatenate(read_quals)
+        shape = (0, len(data.locus.variants))
+        return np.empty(shape, dtype="U1"), np.empty(shape, dtype=np.int16)
+
     def encode_sample_reads(self, data):
         """Extract, encode, and de-duplicate reads per (pooled) sample.
 
@@ -173,56 +197,37 @@ class program:
         locus = data.locus
         for sample in data.samples:
             try:
-                pairs = data.sample_bams[sample]
-                read_chars, read_quals = [], []
-                for name, path in pairs:
-                    alignment_file = self._alignment_file(path)
-                    chars, quals = extract_read_variants(
-                        data.locus,
-                        alignment_file=alignment_file,
-                        samples=name,
-                        id=self.read_group_field,
-                        min_quality=self.mapping_quality,
-                        skip_duplicates=self.skip_duplicates,
-                        skip_qcfail=self.skip_qcfail,
-                        skip_supplementary=self.skip_supplementary,
-                    )[name]
-                    read_chars.append(chars)
-                    read_quals.append(quals)
-                if len(pairs) > 0:
-                    read_chars = np.concatenate(read_chars)
-                    read_quals = np.concatenate(read_quals)
-                else:
-                    shape = (0, len(locus.variants))
-                    read_chars = np.empty(shape, dtype="U1")
-                    read_quals = np.empty(shape, dtype=np.int16)
-
+                with timing.stage("io.read_extract", locus=locus.name, sample=sample):
+                    read_chars, read_quals = self._extract_sample_reads(data, sample)
                 read_count = read_chars.shape[0]
-                data.sampledata[VCF.FORMAT_RCOUNT][sample] = read_count
-                read_variant_depth = character.depth(read_chars)
-                if len(read_variant_depth) == 0:
-                    read_variant_depth = np.array(np.nan)
-                data.sampledata[VCF.FORMAT_DP][sample] = np.round(
-                    np.mean(read_variant_depth)
-                )
-                data.sampledata[VCF.FORMAT_SNVDP][sample] = np.round(read_variant_depth)
+                timing.count("io.reads_extracted", read_count)
+                with timing.stage("encoding.reads", locus=locus.name, sample=sample):
+                    data.sampledata[VCF.FORMAT_RCOUNT][sample] = read_count
+                    read_variant_depth = character.depth(read_chars)
+                    if len(read_variant_depth) == 0:
+                        read_variant_depth = np.array(np.nan)
+                    data.sampledata[VCF.FORMAT_DP][sample] = np.round(
+                        np.mean(read_variant_depth)
+                    )
+                    data.sampledata[VCF.FORMAT_SNVDP][sample] = np.round(read_variant_depth)
 
-                read_calls = encode_read_alleles(locus, read_chars)
-                data.read_calls[sample] = read_calls
-                if self.ignore_base_phred_scores:
-                    read_quals = None
-                read_dists = encode_read_distributions(
-                    locus, read_calls, read_quals, error_rate=self.base_error_rate
-                )
-                data.sampledata[VCF.FORMAT_RCALLS][sample] = np.sum(read_calls >= 0)
+                    read_calls = encode_read_alleles(locus, read_chars)
+                    data.read_calls[sample] = read_calls
+                    if self.ignore_base_phred_scores:
+                        read_quals = None
+                    read_dists = encode_read_distributions(
+                        locus, read_calls, read_quals, error_rate=self.base_error_rate
+                    )
+                    data.sampledata[VCF.FORMAT_RCALLS][sample] = np.sum(read_calls >= 0)
 
-                # de-duplicate reads: dedup over integer calls + qual matrix
-                # (equivalent to the reference's dedup over the float
-                # distributions, baseclass.py:207-209, since the encoding is
-                # a function of calls and quals)
-                read_dists_unique, read_dist_counts = _unique_read_dists(read_dists)
-                data.read_dists[sample] = read_dists_unique
-                data.read_counts[sample] = read_dist_counts
+                    # de-duplicate reads: dedup over integer calls + qual matrix
+                    # (equivalent to the reference's dedup over the float
+                    # distributions, baseclass.py:207-209, since the encoding is
+                    # a function of calls and quals)
+                    read_dists_unique, read_dist_counts = _unique_read_dists(read_dists)
+                    data.read_dists[sample] = read_dists_unique
+                    data.read_counts[sample] = read_dist_counts
+                timing.count("encoding.unique_reads", len(read_dist_counts))
             except Exception as e:
                 message = SAMPLE_ASSEMBLY_ERROR.format(sample=sample)
                 raise SampleAssemblyError(message) from e
@@ -304,8 +309,9 @@ class program:
         with timing.stage("device_sampler"):
             self.call_sample_genotypes(data)
         with timing.stage("summarize_format"):
-            self.sumarise_vcf_record(data)
-            record = data.format_vcf_record()
+            with timing.stage("vcf.record", locus=locus.name):
+                self.sumarise_vcf_record(data)
+                record = data.format_vcf_record()
         timing.tick_loci(1, sample_calls=len(data.samples))
         return record
 
@@ -359,6 +365,17 @@ class program:
                     return
             yield locus
 
+    def _locus_blocks(self, size):
+        """The loci in lists of ``size`` (the last may be shorter)."""
+        pending = []
+        for locus in self._timed_loci():
+            pending.append(locus)
+            if len(pending) >= size:
+                yield pending
+                pending = []
+        if pending:
+            yield pending
+
     def run_stdout(self):
         if self.n_cores and self.n_cores > 1:
             warnings.warn(
@@ -372,22 +389,16 @@ class program:
         block = self._locus_batch_size()
         for line in self.header():
             emit(line + "\n")
-        if block <= 1:
-            for line in self._assemble_loci_wrapped(self._timed_loci()):
+        for index, loci in enumerate(self._locus_blocks(max(block, 1))):
+            with timing.stage("block", block=index, loci=len(loci)):
+                if block <= 1:
+                    lines = list(self._assemble_loci_wrapped(loci))
+                else:
+                    lines = self._call_locus_block(loci)
+            for line in lines:
                 emit(line + "\n")
-        else:
-            pending = []
-            for locus in self._timed_loci():
-                pending.append(locus)
-                if len(pending) >= block:
-                    for line in self._call_locus_block(pending):
-                        emit(line + "\n")
-                    pending = []
-            if pending:
-                for line in self._call_locus_block(pending):
-                    emit(line + "\n")
         if output:
-            timing.emit_summary()
+            timing.report()
 
 
 def _unique_read_dists(read_dists):

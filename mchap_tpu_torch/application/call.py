@@ -207,7 +207,8 @@ class program(call_baseclass.program):
                 burn=self.mcmc_burn,
                 device=self.device,
             )
-            timing.count_sampler_steps(
+            timing.count(
+                "sampler.steps",
                 len(data.samples) * self.mcmc_chains * self.mcmc_steps
             )
             batch_traces = dict(zip(data.samples, traces))
@@ -273,7 +274,8 @@ class program(call_baseclass.program):
                     burn=self.mcmc_burn,
                     device=self.device,
                 )
-                timing.count_sampler_steps(
+                timing.count(
+                    "sampler.steps",
                     len(items) * self.mcmc_chains * self.mcmc_steps
                 )
                 for (idx, sample, _), t in zip(items, fitted):
@@ -284,23 +286,25 @@ class program(call_baseclass.program):
             for idx, (locus, data, setup) in enumerate(prepared):
                 try:
                     if setup is not None:
-                        for sample in data.samples:
-                            try:
-                                t = traces.get((idx, sample))
-                                if t is not None:
-                                    trace = t.burn(self.mcmc_burn)
-                                else:  # zero-variant locus
-                                    trace = self._fit_sample_trace(
-                                        data, setup, sample
+                        with timing.stage("posterior.samples", locus=locus.name):
+                            for sample in data.samples:
+                                try:
+                                    t = traces.get((idx, sample))
+                                    if t is not None:
+                                        trace = t.burn(self.mcmc_burn)
+                                    else:  # zero-variant locus
+                                        trace = self._fit_sample_trace(
+                                            data, setup, sample
+                                        )
+                                    self._finish_sample(data, sample, trace, setup)
+                                except Exception as e:
+                                    message = SAMPLE_ASSEMBLY_ERROR.format(
+                                        sample=sample
                                     )
-                                self._finish_sample(data, sample, trace, setup)
-                            except Exception as e:
-                                message = SAMPLE_ASSEMBLY_ERROR.format(
-                                    sample=sample
-                                )
-                                raise SampleAssemblyError(message) from e
-                    self.sumarise_vcf_record(data)
-                    results.append(data.format_vcf_record())
+                                    raise SampleAssemblyError(message) from e
+                    with timing.stage("vcf.record", locus=locus.name):
+                        self.sumarise_vcf_record(data)
+                        results.append(data.format_vcf_record())
                 except Exception as e:
                     raise LocusAssemblyError(_locus_error(locus)) from e
                 timing.tick_loci(1, sample_calls=len(data.samples))

@@ -330,7 +330,8 @@ class program(call_baseclass.program):
                     burn=self.mcmc_burn,
                     device=self.device,
                 )
-                timing.count_sampler_steps(
+                timing.count(
+                    "sampler.steps",
                     len(problems)
                     * len(sample_ploidy)
                     * self.mcmc_chains

@@ -97,7 +97,8 @@ def main(argv=None):
         records = parse_vcf_records(vcf)
         agree, total = cs._truth_agreement(records, data["truth"])
         routes = sorted(p for (site, p) in fallback.PATHS if site == "denovo")
-        sampler_s = timers.stages.get("device.torch_sampler", float("nan"))
+        # the torch route's launches and the wait for them: the only sampler here
+        sampler_s = sum(timers.stages.get(k, float("nan")) for k in ("device.launch", "device.sync"))
         print(f"chains {chains} steps {steps} burn {burn}: rc {rc}, {len(records)} records,"
               f" routes {routes}, sampler calls {len(calls)} shapes"
               f" {[tuple(c[0][2].shape) for c in calls]}, GT == truth {agree}/{total} ="

@@ -25,6 +25,7 @@ import struct
 import numpy as np
 
 from mchap_tpu_torch.io import indexing
+from mchap_tpu_torch.utils import timing
 
 _SEQ_CODES = "=ACMGRSVTWYHKDBN"
 _CIGAR_OPS = "MIDNSHP=X"
@@ -538,8 +539,17 @@ class AlignmentFile:
             self._refs = refs
 
     def _load_records(self):
+        """Decode the whole file into per-contig, position-sorted lists,
+        once (span ``io.alignment_load``, counter ``io.records_decoded``)."""
         if self._records_by_contig is not None:
             return
+        with timing.stage("io.alignment_load", file=self._path):
+            self._decode_records()
+            timing.count(
+                "io.records_decoded", sum(map(len, self._records_by_contig.values()))
+            )
+
+    def _decode_records(self):
         if self._format == "CRAM":
             self._load_cram()
             return

@@ -282,8 +282,7 @@ def _fit_denovo_batch_kernel(
         return _denovo_traces(*run, sh.start, sh.stop - sh.start, ploidy, n_pos, chains,
                               steps, burn, tabulate, max_allele, restore, fix_llk)
 
-    return run_sharded(n_samples, arrays, launch, fetch, devices=devices, device=device,
-                       stage="device.kernel")
+    return run_sharded(n_samples, arrays, launch, fetch, devices=devices, device=device)
 
 
 def _denovo_traces(packed, llks, start, n, ploidy, n_pos, chains, steps, burn,
@@ -329,6 +328,7 @@ def _denovo_traces(packed, llks, start, n, ploidy, n_pos, chains, steps, burn,
             ]
         # > n_cap distinct states in some chain: fetch the full kept trace
         _fallback.note_path("denovo-tabulate", "overflow-full-fetch")
+        _timing.count("denovo.overflow_problems", n)
 
     with _timing.stage("device.trace_fetch"):
         packed_host = packed[burn:].cpu().numpy()
@@ -413,8 +413,7 @@ def _fit_denovo_batch_torch(
             part.append(t)
         return part
 
-    return run_sharded(n_samples, arrays, launch, fetch, devices=devices, device=device,
-                       stage="device.torch_sampler")
+    return run_sharded(n_samples, arrays, launch, fetch, devices=devices, device=device)
 
 
 def fit_denovo_batch(

@@ -95,7 +95,7 @@ def _fit_batch_kernel(read_hap, counts, ploidy, steps, chains, seed, n_valid,
         ]
 
     traces = run_sharded(S, (rh, counts_t, torch.as_tensor(n_valid)), launch, fetch,
-                         devices=devices, device=device, stage="device.kernel")
+                         devices=devices, device=device)
     _fallback.note_path("calling", "cuda" if device.type == "cuda" else "plain")
     return traces
 
@@ -159,7 +159,7 @@ def _fit_batch_torch(read_hap, counts, ploidy, steps, chains, seed, step_type,
         ]
 
     traces = run_sharded(S, tuple(arrays.values()), launch, fetch, devices=devices,
-                         device=device, stage="device.sampler")
+                         device=device)
     _fallback.note_path("calling", "torch")
     return traces
 

@@ -164,10 +164,7 @@ def _fit(problems, sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
             trace = trace[:, burn:].to(torch.int16).cpu().numpy()
         return list(trace.reshape((sh.stop - sh.start, chains) + trace.shape[1:]))
 
-    trace = np.stack(run_sharded(
-        N, arrays, launch, fetch, devices=devs, device=device,
-        stage="device.kernel" if reason is None else "device.sampler",
-    ))
+    trace = np.stack(run_sharded(N, arrays, launch, fetch, devices=devs, device=device))
     if reason is None:
         _fallback.note_path("pedigree", "cuda" if device.type == "cuda" else "plain")
     else:

@@ -55,7 +55,7 @@ def sharded_calling_step(devices, *, n_steps, ploidy, step_type=0, prior_kind=0)
             return list(zip(run[0].cpu().numpy(), run[1].cpu().numpy()))
 
         results = run_sharded(n_problems, (initial, read_hap, read_counts), launch, fetch,
-                              devices=devices, device=devices[0], stage="device.sampler")
+                              devices=devices, device=devices[0])
         genotypes = np.stack([g for g, _ in results])
         llks = np.stack([x for _, x in results])
         return genotypes, llks, _dist.all_reduce_sum(total)

@@ -19,7 +19,6 @@ devices and ranks.  ``MCHAP_SHARD=0`` keeps a process's blocks on one
 card.
 """
 
-import contextlib
 import os
 from collections import namedtuple
 
@@ -112,7 +111,7 @@ def gather_result(parts):
     return out
 
 
-def run_sharded(n_problems, arrays, launch, fetch, *, devices, device, stage=None):
+def run_sharded(n_problems, arrays, launch, fetch, *, devices, device):
     """Run a block of ``n_problems`` over its shards; every sharded route
     goes through here.
 
@@ -121,16 +120,18 @@ def run_sharded(n_problems, arrays, launch, fetch, *, devices, device, stage=Non
     devices, device)``, or all to ``device`` where that is None.
     ``launch(shard)`` issues the shard's work on its device and returns
     what ``fetch`` needs; it runs for every shard before any wait, so
-    the cards work at once.  Then every card in use is synchronized
-    (both under the timing stage ``stage``, if one is named), ``fetch(shard,
-    launched)`` turns each shard's output into a list of per-problem host
+    the cards work at once (span ``device.launch``).  Then every card in
+    use is synchronized (span ``device.sync``), ``fetch(shard, launched)``
+    turns each shard's output into a list of per-problem host
     results, and the lists are gathered in problem order over shards and
     ranks (``gather_result``).
     """
     devs = problem_devices(n_problems, devices, device) or [torch.device(device)]
     shards = shard_problems(devs, n_problems, *arrays)
-    with _timing.stage(stage) if stage else contextlib.nullcontext():
+    _timing.count("sampler.problems", sum(sh.stop - sh.start for sh in shards))
+    with _timing.stage("device.launch", shards=len(shards)):
         runs = [launch(sh) for sh in shards]
+    with _timing.stage("device.sync", shards=len(shards)):
         for dev in dict.fromkeys(sh.device for sh in shards):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
