@@ -60,7 +60,9 @@ the posteriors too (``host.posterior_tab`` directly under it) and
 
 The top-level stages ``read_loci``, ``encode_reads``, ``device_sampler``
 and ``summarize_format`` never nest in one another.  The counters:
-``io.records_decoded``, ``io.reads_extracted``, ``encoding.unique_reads``,
+``io.records_decoded``, ``io.reads_extracted``, ``io.snv_calls`` (the
+(read, SNV) calls read off reads, before mates merge; counted in
+``io/bam.extract_read_variants``), ``encoding.unique_reads``,
 ``sampler.problems`` (problems this process ran), ``sampler.steps``
 (compound MCMC steps: problems x chains x steps) and
 ``denovo.overflow_problems`` (problems whose tabulation overflowed).
@@ -220,6 +222,8 @@ class PipelineTimers:
         if counters.get("io.reads_extracted"):
             share = counters.get("encoding.unique_reads", 0) / counters["io.reads_extracted"]
             lines.append(f"  encoding: {share:.4f} unique reads per read extracted")
+            calls = counters.get("io.snv_calls", 0) / counters["io.reads_extracted"]
+            lines.append(f"  io: {calls:.4f} SNV calls per read extracted")
         steps = counters.get("sampler.steps", 0)
         if steps:
             sps = steps / elapsed if elapsed > 0 else 0.0

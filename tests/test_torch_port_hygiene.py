@@ -29,7 +29,7 @@ COPIED = [
     "constant.py", "mset.py",
     "encoding/__init__.py", "encoding/character.py", "encoding/integer.py",
     "io/__init__.py", "io/util.py", "io/filter_alleles.py", "io/fastalite.py",
-    "io/indexing.py", "io/vcflite.py", "io/bam.py",
+    "io/indexing.py", "io/vcflite.py",
     "io/loci.py", "io/bed.py", "io/vcf.py",
     "native/__init__.py", "native/bamreader.cpp", "native/cramreader.cpp",
     "native/records.h",

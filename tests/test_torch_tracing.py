@@ -12,6 +12,8 @@ span it was launched in; on a machine with a card:
 import contextlib
 import io
 import json
+import pathlib
+import re
 import time
 
 import pytest
@@ -267,6 +269,64 @@ def test_cli_spans_counters_and_trace(dataset, tool, locus_batch, monkeypatch, t
     assert {e["name"] for e in trace["traceEvents"] if e["ph"] == "C"} == set(counters)
     first = min(spans, key=lambda e: e["ts"])
     assert first["ts"] == timers.spans[0].start / 1e3
+
+
+def _panel_snvs(path):
+    """The 0-based SNV positions of a haplotype VCF, from POS and SNVPOS."""
+    snvs = []
+    for line in pathlib.Path(path).read_text().splitlines():
+        if not line.startswith("#"):
+            fields = line.split("\t")
+            info = dict(kv.split("=") for kv in fields[7].split(";"))
+            snvs += [int(fields[1]) + int(s) - 2 for s in info["SNVPOS"].split(",")]
+    return snvs
+
+
+def _calls_in_sam(path, snvs):
+    """The (record, SNV) pairs of a SAM file whose SNV lies in one of the
+    record's M blocks."""
+    n = 0
+    for line in pathlib.Path(path).read_text().splitlines():
+        if line.startswith("@"):
+            continue
+        fields = line.split("\t")
+        ref = int(fields[3]) - 1
+        for ln, op in re.findall(r"(\d+)([MIDNSHP=X])", fields[5]):
+            if op in "M=X":
+                n += sum(ref <= p < ref + int(ln) for p in snvs)
+            if op in "MDN=X":
+                ref += int(ln)
+    return n
+
+
+def test_snv_calls_counter_counts_calls_before_mates_merge(dataset, monkeypatch, tmp_path):
+    """``io.snv_calls`` of a ``call`` job equals the (read, SNV) pairs
+    counted from the SAM records and the panel's SNVs.  The first sample's
+    reads are written twice under one qname each (mates), so its calls
+    double while its rows stay as many as its qnames."""
+    bams = list(dataset["bams"])
+    lines = pathlib.Path(bams[0]).read_text().splitlines()
+    mates = tmp_path / "mates.sam"
+    mates.write_text("\n".join(
+        [x for x in lines if x.startswith("@")]
+        + [x for x in lines if not x.startswith("@") for _ in range(2)]) + "\n")
+    bams[0] = str(mates)
+    monkeypatch.setenv("MCHAP_TIMING", "1")
+    timers = timing.reset()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert main(_argv(dict(dataset, bams=bams), "call")) == 0
+    records = parse_vcf_records(out.getvalue())
+    snvs = _panel_snvs(dataset["haplotypes"])
+    calls = [_calls_in_sam(path, snvs) for path in bams]
+    assert calls[0] == 2 * _calls_in_sam(dataset["bams"][0], snvs) > 0
+    assert timers.counters["io.snv_calls"] == sum(calls)
+    rows = {s: sum(int(r["calls"][s]["RCOUNT"]) for r in records) for s in dataset["samples"]}
+    first = dataset["samples"][0]
+    assert rows[first] == sum(not x.startswith("@") for x in lines)
+    assert timers.counters["io.reads_extracted"] == sum(rows.values())
+    per_read = sum(calls) / sum(rows.values())
+    assert f"io: {per_read:.4f} SNV calls per read extracted" in err.getvalue()
 
 
 @pytest.mark.parametrize("tool", ["call", "assemble"])
