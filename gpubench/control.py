@@ -4,14 +4,15 @@ configuration's float32, judged like a run of the program.
 
 Usage, from the root of a checkout:
 
-    python3 -m gpubench.control --workload <cell> --seeds <n> [<n> ...] [--device cuda]
+    python3 -m gpubench.control --workload <cell> [--device cuda]
 
-For each seed it writes the datasets a run of the cell with that seed
-writes, answers every (locus, sample) of each with the bfloat16
-reference's posterior mode, its probability and its log-likelihood
-(``judge.control``),
-and prints the numbers the run would compare, one JSON line per seed.
-A limit has to sit below what the control reads in at least one number.
+It writes the datasets that every run of the cell writes, whatever its
+seed (``run.POOL_SEED``), answers every (locus, sample) of each with the
+bfloat16 reference's posterior mode, its probability and its
+log-likelihood (the tool file's ``control``), and prints the numbers the
+run would compare as one JSON line.  It draws nothing, so it reads the
+same on every call.  A limit has to sit below what the control reads in
+at least one number.
 """
 
 import argparse
@@ -23,23 +24,23 @@ import sys
 import tempfile
 
 
-def control_numbers(cell, seed, device="cpu"):
+def control_numbers(cell, device="cpu"):
     from gpubench import run
-    from gpubench.reference import judge
 
+    tool = run.load_tool(cell["tool"])
     directory = (pathlib.Path(os.environ.get("TMPDIR") or tempfile.gettempdir())
-                 / "gpubench-control" / cell["name"] / str(seed))
-    pool = run.write_pool(directory, cell, seed, cell["pool"])
+                 / "gpubench-control" / cell["name"])
+    pool = run.write_pool(directory, cell, cell["pool"])
     names = pool[0]["samples"]
     cell = dict(cell, samples=names if cell["samples"] == "all" else [names[i] for i in cell["samples"]])
     numbers, worst = [], []
     for d in pool:
-        ref = judge.Reference(d, cell)
-        n, w = judge.judge(ref, *judge.control(ref, device=device))
+        ref = tool.Reference(d, cell)
+        n, w = tool.judge(ref, *tool.control(ref, device=device))
         numbers.append(n)
         worst.append(w)
     shutil.rmtree(directory, ignore_errors=True)
-    return judge.merge(numbers), worst
+    return tool.merge(numbers), worst
 
 
 def main(argv=None):
@@ -47,14 +48,11 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--workload", required=True)
-    parser.add_argument("--seeds", type=int, nargs="+", required=True)
     parser.add_argument("--device", default="cpu")
     args = parser.parse_args(argv)
     cell = run.load_cell(args.workload)
-    for seed in args.seeds:
-        numbers, worst = control_numbers(cell, seed, args.device)
-        print(json.dumps(dict(workload=args.workload, seed=seed, numbers=numbers, worst=worst)),
-              flush=True)
+    numbers, worst = control_numbers(cell, args.device)
+    print(json.dumps(dict(workload=args.workload, numbers=numbers, worst=worst)), flush=True)
     return 0
 
 

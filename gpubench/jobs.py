@@ -3,11 +3,12 @@
 Follows ``chip_smoke._run_cli`` (``chip_smoke.py`` at commit
 65387dc1a014974af8eb9ddb0164675d39e14aad): the route tally
 (``utils.fallback.PATHS``), the kernels' launch counters and the stage
-timers (``utils.timing``) are reset just before the call and read just
-after it.  The stage timers run only where ``MCHAP_TIMING`` asks for
-them (the traced run); then each stage is also kept as a span, on the
-clock of the profiler's trace (``time.time_ns``), so that idle gaps on
-the device can be put down to what the host was doing.
+timers and counters (``utils.timing``) are reset just before the call
+and read just after it.  The stage timers and counters run only where
+``MCHAP_TIMING`` asks for them (the traced run); then each stage is also
+kept as a span, on the clock of the profiler's trace (``time.time_ns``),
+so that idle gaps on the device can be put down to what the host was
+doing.
 """
 
 import contextlib
@@ -78,6 +79,7 @@ def run_job(argv, timed_stages):
     wall = time.perf_counter() - t0
     return dict(
         ok=error is None, vcf=out.getvalue(), wall_s=wall, stages=dict(timers.stages),
-        spans=spans, paths={f"{site}={path}": n for (site, path), n in fallback.PATHS.items()},
+        spans=spans, counters=dict(timers.counters),
+        paths={f"{site}={path}": n for (site, path), n in fallback.PATHS.items()},
         launches={name: fn.launches for name, fn in _counters()}, error=error,
     )

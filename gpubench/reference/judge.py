@@ -1,4 +1,7 @@
-"""The comparison that decides a run's ``correct``.
+"""The comparison that decides a run's ``correct``: what every tool's
+judge shares.  Each tool (``tools/<tool>.py``) builds its judge from
+these parts and its own ``Reference``; what follows is what the two
+tools here, ``assemble`` and ``call``, make of them.
 
 Every locus of every job in the window is judged through three layers,
 each against the plain reference (``reads.py``, ``model.py``) worked out
@@ -44,6 +47,12 @@ NUMBERS = ("records_bad", "stats_diff", "mec_diff", "encode_diff", "summary_diff
 WRITTEN = 5e-4 + 1e-9
 # merged over a window's jobs by their largest value; the others add up
 PER_JOB_MAX = ("unresolved", "llk_err_max", "gap_max", "gpm_err_max")
+# counts that every cell holds at 0
+EXACT = ("records_bad", "stats_diff", "mec_diff", "encode_diff", "summary_diff")
+# what every cell of a tool judged by these numbers limits: (numbers, limit) pairs,
+# each met by a limit on one of the numbers, at the limit where it is not None
+REQUIRED = tuple(((k,), 0) for k in EXACT) + ((("llk_err_max",), None),
+                                              (("gap_max", "gpm_err_max"), None))
 
 
 def parse_vcf(text):
@@ -66,25 +75,51 @@ def parse_vcf(text):
 
 class Reference:
     """The reference's view of one dataset under one cell: its loci and
-    each sample's encoded reads, worked out once and kept."""
+    each sample's encoded reads, worked out once and kept.  A tool's own
+    ``Reference`` (``tools/<tool>.py``) gives what differs: ``read_loci``,
+    ``candidates``, ``genotype``, ``POSTERIOR``, and where it has them
+    ``fits`` and ``sampler_state``."""
+
+    # model.posterior's flat prior: over "orderings" or over "genotypes"
+    POSTERIOR = "orderings"
 
     def __init__(self, dataset, cell):
         self.data = dataset
-        self.tool = cell["tool"]
         self.ploidy = cell["ploidy"]
         self.samples = cell["samples"]
         self.inbreeding = cell.get("inbreeding", 0.0)
         self.error_rate = cell["base_error_rate"]
         self.kept = cell["chains"] * (cell["steps"] - cell["burn"])  # per problem, cold chains
         self.threshold = cell.get("haplotype_posterior_threshold")
-        if self.tool == "call":
-            self.panel = {p["locus"].name: p for p in reads.panel_loci(dataset["panel"])}
-            self.loci = [p["locus"] for p in self.panel.values()]
-        else:
-            self.loci = reads.bed_loci(dataset["targets"], dataset["variants"])
+        self.loci = self.read_loci(dataset)
         self._alignments = {}
         self._reads = {}
         self._index = None
+
+    def read_loci(self, dataset):
+        """The loci that the tool's VCF reports, from the dataset's files."""
+        raise NotImplementedError
+
+    def candidates(self, locus, extra=()):
+        """(haplotype allele vectors [H, n_snv], prior frequencies or None)."""
+        raise NotImplementedError
+
+    def genotype(self, locus, state):
+        """(haplotypes [H, n_snv], genotypes [1, ploidy] of indices into
+        them) of a sampler state (a long tensor), or None for a state that
+        is no genotype of this locus."""
+        raise NotImplementedError
+
+    def fits(self, locus, seqs, gt):
+        """Whether a VCF record's alleles ``seqs`` and a call's ``gt``
+        (allele indices, None for '.') are of a form the tool writes."""
+        return True
+
+    def sampler_state(self, called, genotype):
+        """The sampler's state of a genotype that the control calls:
+        ``called`` its haplotypes [ploidy, n_snv], ``genotype`` its
+        indices into the candidates [ploidy]."""
+        return called
 
     def sample_reads(self, locus, sample):
         key = (locus.name, sample)
@@ -95,20 +130,6 @@ class Reference:
                     reads.read_sam(self.data["bams"][i]))
             self._reads[key] = reads.sample_reads(self._alignments[sample], locus, self.error_rate)
         return self._reads[key]
-
-    def candidates(self, locus, extra=()):
-        """(haplotype allele vectors [H, n_snv], prior frequencies or None)."""
-        if self.tool == "call":
-            p = self.panel[locus.name]
-            haps, freqs = p["haplotypes"], p["frequencies"]
-            if self.inbreeding and freqs is not None:
-                keep = freqs > 0  # the program masks zero-frequency haplotypes
-                return haps[keep], freqs[keep] / freqs[keep].sum()
-            return haps, None
-        founders = [reads.haplotype_alleles(locus, s)
-                    for s in self.data["panels"][locus.name]["sequences"]]
-        rows = list({tuple(h): None for h in list(founders) + list(extra)})
-        return np.array(rows, np.int64).reshape(len(rows), len(locus.positions)), None
 
     def read_index(self):
         """{the reads' key: (locus, sample)} over every problem the
@@ -123,22 +144,13 @@ class Reference:
         return self._index
 
     def state_llk(self, locus, sample, state, dtype=model.F64):
-        """ln P(reads | genotype) of a sampler state: de novo, the
-        haplotypes' alleles [ploidy, n_snv]; calling, indices into the
-        candidate haplotypes [ploidy].  None for a state that is no
-        genotype of this locus."""
+        """ln P(reads | genotype) of a sampler state (``genotype``).  None
+        for a state that is no genotype of this locus."""
         r = self.sample_reads(locus, sample)
-        state = torch.as_tensor(np.asarray(state), dtype=torch.long)
-        n_alleles = torch.tensor([len(a) for a in locus.alleles])
-        if self.tool == "assemble":
-            if state.shape != (self.ploidy, len(n_alleles)) or ((state < 0) | (state >= n_alleles)).any():
-                return None  # not a genotype of this locus
-            haps, gens = state, torch.arange(self.ploidy)[None]
-        else:
-            haps = torch.as_tensor(self.candidates(locus)[0], dtype=torch.long)
-            if state.shape != (self.ploidy,) or ((state < 0) | (state >= len(haps))).any():
-                return None
-            gens = torch.sort(state).values[None]
+        found = self.genotype(locus, torch.as_tensor(np.asarray(state), dtype=torch.long))
+        if found is None:
+            return None
+        haps, gens = found
         return float(model.log_likelihoods(torch.as_tensor(r.dists, dtype=model.F64),
                                            torch.as_tensor(r.counts, dtype=model.F64),
                                            haps, gens, dtype)[0])
@@ -146,7 +158,7 @@ class Reference:
     def posterior(self, locus, sample, haps, freqs, dtype=model.F64, device="cpu"):
         r = self.sample_reads(locus, sample)
         return model.posterior(r.dists, r.counts, haps, self.ploidy, freqs, self.inbreeding,
-                               dtype, device, "genotypes" if self.tool == "call" else "orderings")
+                               dtype, device, self.POSTERIOR)
 
 
 def read_key(dists, counts):
@@ -289,8 +301,9 @@ def summary_diff(rec):
 
 def answers_from_vcf(ref, text):
     """The program's answers in one job's VCF: {(locus, sample): answer},
-    an answer None where the record or the call is missing or malformed;
-    and the loci whose record's summary disagrees with its calls."""
+    an answer None where the record or the call is missing or malformed
+    or not of a form the tool writes (``ref.fits``); and the loci whose
+    record's summary disagrees with its calls."""
     records = parse_vcf(text)
     out = {}
     bad_summary = {name for name, rec in records.items() if summary_diff(rec)}
@@ -302,12 +315,9 @@ def answers_from_vcf(ref, text):
                 out[(locus.name, s)] = None
                 continue
             seqs = rec[0]
-            if ref.tool == "call" and seqs != ref.panel[locus.name]["sequences"]:
-                out[(locus.name, s)] = None
-                continue
             try:
                 gt = [None if a == "." else int(a) for a in call["GT"].replace("|", "/").split("/")]
-                if ref.tool == "call" and None in gt:  # every allele is the panel's
+                if not ref.fits(locus, seqs, gt):
                     out[(locus.name, s)] = None
                     continue
                 resolved = [reads.haplotype_alleles(locus, seqs[a]) for a in gt if a is not None]
@@ -323,67 +333,68 @@ def answers_from_vcf(ref, text):
     return out, bad_summary
 
 
-def judge(ref, answers, record, bad_summary=()):
-    """Numbers of one job's answers and record summaries
-    (``answers_from_vcf``) and sampler record (``taps.tap``) against the
-    reference, and the worst sample-locus behind each widest gap."""
+def start(bad_summary=()):
+    """The numbers of one job before any answer is judged, and its worst
+    cases, to be filled in by the tool's ``judge``."""
     n = dict.fromkeys(NUMBERS, 0)
     n["summary_diff"] = len(bad_summary)
     for k in ("llk_err_max", "gap_max", "gpm_err_max"):
         n[k] = 0.0
-    worst = {}
-    worst["llk_err_max"], tabs = judge_sampler(ref, record, n)
-    for locus in ref.loci:
-        summaries, status = {}, {}
-        if ref.tool == "assemble" and len(locus.positions):
-            summaries = {s: summary_of(tabs[(locus.name, s)]) for s in ref.samples
-                         if (locus.name, s) in tabs}
-            status = reported(summaries.values(), ref.threshold)
-        for s in ref.samples:
-            a = answers.get((locus.name, s))
-            if a is None:
-                n["records_bad"] += 1
-                continue
-            r = ref.sample_reads(locus, s)
-            if (a["dp"], a["rcount"], a["rcalls"]) != (r.depth, r.count, r.n_calls):
-                n["stats_diff"] += 1
-            resolved = a["haps"] is not None and not any((h < 0).any() for h in a["haps"])
-            called = np.stack(a["haps"]) if resolved else None
-            if ref.tool == "assemble" and len(locus.positions):
-                sm = summaries.get(s)
-                mode = None if sm is None or sm["total"] != ref.kept else match_summary(a, sm, status)
-                if mode is None:
-                    n["tab_diff"] += 1
-                    worst["tab_diff"] = (locus.name, s, a["n_dot"], a["gpm"],
-                                         None if sm is None else sm["total"])
-                else:
-                    called = mode.astype(np.int64)  # the call with its '.' alleles filled in
-            if not resolved:
-                n["unresolved"] += 1
-            if called is None:
-                continue
-            mec = int(((r.calls[:, None, :] != called[None]) & (r.calls[:, None, :] >= 0))
-                      .sum(-1).min(-1).sum()) if len(r.calls) else 0
-            n["mec_diff"] += mec != a["mec"]
-            if not resolved:
-                continue  # the gap is the called alleles' posterior, and some are not called
-            haps, freqs = ref.candidates(locus, called)
-            rows = {tuple(h): i for i, h in enumerate(haps)}
-            alleles = [rows.get(tuple(h)) for h in called]
-            if None in alleles:  # a haplotype the prior rules out
-                n["gap_max"] = float("inf")
-                worst["gap_max"] = (locus.name, s, "outside the candidates")
-                continue
-            gens, lp, probs = ref.posterior(locus, s, haps, freqs)
-            g = _genotype_index(gens, alleles)
-            gap = float(lp.max() - lp[g])
-            err = abs(a["gpm"] - float(probs[g]))
-            if gap > n["gap_max"]:
-                n["gap_max"], worst["gap_max"] = gap, (locus.name, s, round(float(probs[g]), 6))
-            if err > n["gpm_err_max"]:
-                n["gpm_err_max"] = err
-                worst["gpm_err_max"] = (locus.name, s, a["gpm"], round(float(probs[g]), 6))
-    return n, worst
+    return n, {}
+
+
+def read_answer(ref, locus, s, a, n):
+    """Into ``n``: a sample-locus with no answer (``records_bad``), or
+    whose ``DP``, ``RCOUNT`` or ``RCALLS`` differ from its reads'
+    (``stats_diff``).  Returns None for no answer, else (the reads,
+    whether every allele is called, the called haplotypes [ploidy,
+    n_snv] or None)."""
+    if a is None:
+        n["records_bad"] += 1
+        return None
+    r = ref.sample_reads(locus, s)
+    if (a["dp"], a["rcount"], a["rcalls"]) != (r.depth, r.count, r.n_calls):
+        n["stats_diff"] += 1
+    resolved = a["haps"] is not None and not any((h < 0).any() for h in a["haps"])
+    return r, resolved, np.stack(a["haps"]) if resolved else None
+
+
+def mec(r, called):
+    """The reads' minimum error correction against a genotype [ploidy, n_snv]."""
+    return int(((r.calls[:, None, :] != called[None]) & (r.calls[:, None, :] >= 0))
+               .sum(-1).min(-1).sum()) if len(r.calls) else 0
+
+
+def judge_genotype(ref, locus, s, a, r, resolved, called, n, worst):
+    """Into ``n``: an answer with an allele left uncalled (``unresolved``),
+    then, of the genotype ``called`` stands for (None: none), its MEC
+    against the answer's (``mec_diff``) and, where every allele is
+    called, how far its log posterior lies below the best genotype's
+    over the candidates (``gap_max``) and the answer's ``GPM`` against its
+    posterior probability (``gpm_err_max``), with the worst cases."""
+    if not resolved:
+        n["unresolved"] += 1
+    if called is None:
+        return
+    n["mec_diff"] += mec(r, called) != a["mec"]
+    if not resolved:
+        return  # the gap is the called alleles' posterior, and some are not called
+    haps, freqs = ref.candidates(locus, called)
+    rows = {tuple(h): i for i, h in enumerate(haps)}
+    alleles = [rows.get(tuple(h)) for h in called]
+    if None in alleles:  # a haplotype the prior rules out
+        n["gap_max"] = float("inf")
+        worst["gap_max"] = (locus.name, s, "outside the candidates")
+        return
+    gens, lp, probs = ref.posterior(locus, s, haps, freqs)
+    g = _genotype_index(gens, alleles)
+    gap = float(lp.max() - lp[g])
+    err = abs(a["gpm"] - float(probs[g]))
+    if gap > n["gap_max"]:
+        n["gap_max"], worst["gap_max"] = gap, (locus.name, s, round(float(probs[g]), 6))
+    if err > n["gpm_err_max"]:
+        n["gpm_err_max"] = err
+        worst["gpm_err_max"] = (locus.name, s, a["gpm"], round(float(probs[g]), 6))
 
 
 def merge(numbers):
@@ -410,38 +421,13 @@ def control(ref, dtype=torch.bfloat16, device="cpu"):
             gens, lp, probs = ref.posterior(locus, s, haps, freqs, dtype, device)
             g = int(torch.argmax(probs.to(model.F64)))
             called = haps[gens[g].numpy()]
-            mec = int(((r.calls[:, None, :] != called[None]) & (r.calls[:, None, :] >= 0))
-                      .sum(-1).min(-1).sum()) if len(r.calls) else 0
             answers[(locus.name, s)] = dict(
                 haps=list(called), resolved=list(called), n_dot=0, spm=None,
                 gpm=round(float(probs[g]), 3), dp=float(r.depth),
-                rcount=r.count, rcalls=r.n_calls, mec=mec,
+                rcount=r.count, rcalls=r.n_calls, mec=mec(r, called),
             )
             if len(locus.positions):
-                state = called if ref.tool == "assemble" else gens[g].numpy()
+                state = ref.sampler_state(called, gens[g].numpy())
                 record.append(dict(reads=r.dists, counts=r.counts,
                                    states=[(state, ref.state_llk(locus, s, state, dtype))]))
     return answers, record
-
-
-def problems(ref, cell):
-    """Each (locus, sample) problem's inputs as the sampler's mathematics
-    sees them, for the work counts of ``metrics/``: distinct reads, and
-    the alleles of each SNV left free by the homozygosity screen
-    (``assemble``) or the haplotypes the sampler chooses among
-    (``call``)."""
-    out = []
-    for locus in ref.loci:
-        n_alleles = [len(a) for a in locus.alleles]
-        haps = ref.candidates(locus)[0] if ref.tool == "call" else None
-        for s in ref.samples:
-            r = ref.sample_reads(locus, s)
-            p = dict(reads=len(r.counts))
-            if ref.tool == "call":
-                p["haplotypes"] = len(haps)
-            else:
-                free = model.het_positions(r.dists, r.counts, n_alleles, ref.ploidy,
-                                           cell["fix_homozygous"])
-                p["free_alleles"] = [a for a, f in zip(n_alleles, free.tolist()) if f]
-            out.append(p)
-    return out

@@ -7,19 +7,22 @@ Usage, from the root of a checkout:
 A cell (``BENCHMARK.json``'s ``workloads``) is ``workloads/<cell>.json``,
 which names its configuration, ``configs/<config>.json``.  A run:
 
-1. writes ``pool`` datasets of the configuration's shape from ``--seed``
-   (``data.py``) under ``$TMPDIR/gpubench/<cell>/<seed>``;
+1. writes ``pool`` datasets of the configuration's shape (``data.py``)
+   under ``$TMPDIR/gpubench/<cell>/<seed>``;
 2. warms up on one job (every kernel it needs is built or loaded);
 3. opens the window and runs jobs back to back, one client in a closed
-   loop: job ``i`` runs ``mchap <tool>`` in process on dataset
-   ``i % pool`` with ``--mcmc-seed <seed + i>`` (the warm-up is job 0),
-   and a job that starts before ``--seconds`` have passed runs to its
-   end and counts;
+   loop, each ``mchap <tool>`` in process on a dataset of the pool with
+   an MCMC seed: the window's jobs go round the pool again and again, in
+   an order drawn from ``--seed`` (``pool_order``), and a job that starts
+   before ``--seconds`` have passed runs to its end and counts.  The
+   datasets and each round's MCMC seeds are the same for every seed
+   (``POOL_SEED``, ``mcmc_seed``), so every run does the same work;
 4. with ``--trace 1``, runs the window under ``torch.profiler`` and the
    program's stage timers, and reads each per-layer metric that
    ``BENCHMARK.json`` gives this cell from ``metrics/<name>.py``;
 5. judges every locus of every window job against the plain reference
-   (``reference/``) and prints the result as the last line.
+   through the configuration's tool file (``tools/<tool>.py``, built on
+   ``reference/``) and prints the result as the last line.
 
 ``setup_s`` runs from the process's start to the window's opening;
 ``loci_per_s`` is the loci of all window jobs over the time from the
@@ -98,11 +101,42 @@ def apply_options(cell):
     return cell
 
 
-def load_metric(name):
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"gpubench_metric_{name}", path)
+def _load(kind, name):
+    path = HERE / kind / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"gpubench_{kind}_{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    return module
+
+
+def load_metric(name):
+    return _load("metrics", name)
+
+
+# what a tool file (``tools/<tool>.py``) gives the harness: the program's block
+# fit it taps (``SITE``) and the tap, its reference, judge and problems, the
+# metric that counts its sampler work, and for the fault tests the steps of a
+# small run and its samplers frozen at their initial state
+TOOL_INTERFACE = ("SITE", "tap", "Reference", "judge", "problems", "WORK", "SMALL_RUN",
+                  "unchanged_samplers")
+# what a tool file may give of its own, else the shared judge's (``reference/judge.py``)
+TOOL_SHARED = ("NUMBERS", "REQUIRED", "answers_from_vcf", "control", "merge")
+
+
+def load_tool(name):
+    """The tool file of a configuration's ``tool``, ``tools/<name>.py``,
+    with each name of ``TOOL_SHARED`` that it does not give taken from
+    ``reference/judge.py``; raises AttributeError, naming them, where it
+    lacks part of ``TOOL_INTERFACE``."""
+    from gpubench.reference import judge
+
+    module = _load("tools", name)
+    missing = [k for k in TOOL_INTERFACE if not hasattr(module, k)]
+    if missing:
+        raise AttributeError(f"gpubench: tools/{name}.py lacks {', '.join(missing)}")
+    for k in TOOL_SHARED:
+        if not hasattr(module, k):
+            setattr(module, k, getattr(judge, k))
     return module
 
 
@@ -111,8 +145,17 @@ def cell_metrics(bench, cell_name, kind):
     return [m for m in bench[kind] if cell_name in m.get("workloads", [cell_name])]
 
 
-def write_pool(directory, cell, seed, n):
-    """The cell's datasets, one process each (the writer is host Python)."""
+# the seed of every run's datasets and jobs: a run's own seed orders the jobs
+# and draws the states the tap keeps, but changes neither the datasets nor the
+# MCMC seeds, since how long a job takes depends on both (in ``assemble``, on
+# how many of its problems take the tabulation's overflow route), and so a
+# rate over jobs drawn from each run's seed would swing with the seed
+POOL_SEED = 0
+
+
+def write_pool(directory, cell, n):
+    """The cell's ``n`` datasets, from ``POOL_SEED``, one process each (the
+    writer is host Python)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -120,9 +163,23 @@ def write_pool(directory, cell, seed, n):
 
     shutil.rmtree(directory, ignore_errors=True)
     with ProcessPoolExecutor(n, mp_context=multiprocessing.get_context("spawn")) as ex:
-        futures = [ex.submit(data.write_pool_one, directory, cell["dataset"], seed, i)
+        futures = [ex.submit(data.write_pool_one, directory, cell["dataset"], POOL_SEED, i)
                    for i in range(n)]
         return [f.result() for f in futures]
+
+
+def pool_order(seed, n):
+    """The order, drawn from ``seed``, in which a run goes through its
+    ``n`` datasets, again and again."""
+    import numpy as np
+
+    return np.random.default_rng([seed, 0x90D]).permutation(n).tolist()
+
+
+def mcmc_seed(dataset, round_, n):
+    """The MCMC seed of a run's ``round_``-th job on dataset ``dataset`` of
+    its ``n``; the warm-up is round -1."""
+    return POOL_SEED + 1 + (round_ + 1) * n + dataset
 
 
 def job_argv(cell, dataset, mcmc_seed, device=None):
@@ -158,19 +215,20 @@ def measure(cell, seed, seconds, traced, started, device=None, metrics=(), log=p
     is the card; tests pass "cpu" to drive the rest of a run without one."""
     import torch
 
-    from gpubench import jobs, taps, trace
-    from gpubench.reference import judge
+    from gpubench import jobs, trace
 
+    tool = load_tool(cell["tool"])
     on_card = device is None
     tmp = pathlib.Path(os.environ.get("TMPDIR") or tempfile.gettempdir())
     directory = tmp / "gpubench" / cell["name"] / str(seed)
     t_write = boot_seconds()
-    pool = write_pool(directory, cell, seed, cell["pool"])
+    pool = write_pool(directory, cell, cell["pool"])
+    order = pool_order(seed, len(pool))
     t_warm = boot_seconds()
     names = pool[0]["samples"]
     cell["samples"] = names if cell["samples"] == "all" else [names[i] for i in cell["samples"]]
 
-    warm = jobs.run_job(job_argv(cell, pool[0], seed, device), traced)
+    warm = jobs.run_job(job_argv(cell, pool[0], mcmc_seed(0, -1, len(pool)), device), traced)
     log(f"gpubench: warm-up job wall {warm['wall_s']:.4f} s ok {warm['ok']}")
     if not warm["ok"]:
         log(f"gpubench: warm-up error: {warm['error']}")
@@ -182,10 +240,12 @@ def measure(cell, seed, seconds, traced, started, device=None, metrics=(), log=p
         f" datasets {t_warm - t_write:.4f} s, warm-up and the rest {started + setup_s - t_warm:.4f} s")
     window = []
     while True:
-        i = len(window) + 1
-        with taps.tap(cell["tool"], seed + i, cell["burn"]) as record:
-            job = jobs.run_job(job_argv(cell, pool[i % len(pool)], seed + i, device), traced)
-        job.update(dataset=i % len(pool), record=record)
+        i = len(window)
+        k = order[i % len(pool)]
+        with tool.tap(seed + i + 1, cell["burn"]) as record:
+            job = jobs.run_job(job_argv(cell, pool[k], mcmc_seed(k, i // len(pool), len(pool)),
+                                        device), traced)
+        job.update(dataset=k, record=record)
         window.append(job)
         if time.perf_counter() - t_open >= seconds:
             break
@@ -197,13 +257,13 @@ def measure(cell, seed, seconds, traced, started, device=None, metrics=(), log=p
     if on_card:
         torch.cuda.empty_cache()
 
-    refs = [judge.Reference(d, cell) for d in pool]
+    refs = [tool.Reference(d, cell) for d in pool]
     loci = len(refs[0].loci)
     numbers, failed = [], 0
     for i, job in enumerate(window, 1):
         ref = refs[job["dataset"]]
-        answers, bad_summary = judge.answers_from_vcf(ref, job["vcf"]) if job["ok"] else ({}, ())
-        n, worst = judge.judge(ref, answers, job["record"], bad_summary)
+        answers, bad_summary = tool.answers_from_vcf(ref, job["vcf"]) if job["ok"] else ({}, ())
+        n, worst = tool.judge(ref, answers, job["record"], bad_summary)
         numbers.append(n)
         bad = {name for (name, _), a in answers.items() if a is None}
         failed += loci if not job["ok"] else len(bad)
@@ -214,7 +274,7 @@ def measure(cell, seed, seconds, traced, started, device=None, metrics=(), log=p
             f" worst {json.dumps(worst)}")
         if job["error"]:
             log(f"gpubench: job {i} error: {job['error']}")
-    merged = judge.merge(numbers)
+    merged = tool.merge(numbers)
     log(f"gpubench: numbers {json.dumps(merged)}")
     checks = {k: dict(value=merged[k], limit=limit) for k, limit in cell["limits"].items()}
     correct = failed == 0 and all(c["value"] <= c["limit"] for c in checks.values())
@@ -234,7 +294,7 @@ def measure(cell, seed, seconds, traced, started, device=None, metrics=(), log=p
         result["metrics"]["setup_s"] = dict(value=setup_s, unit="s")
     else:
         for job in window:
-            job["problems"] = judge.problems(refs[job["dataset"]], cell)
+            job["problems"] = tool.problems(refs[job["dataset"]], cell)
         busy = trace.busy_intervals(events, ns_open, ns_close)
         busy_s = sum(e - s for s, e in busy) / 1e9
         ctx = dict(cell=cell, jobs=window, window_s=(ns_close - ns_open) / 1e9,

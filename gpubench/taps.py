@@ -1,17 +1,16 @@
 """What a run reads from the program besides the VCF it writes: the
 sampler stage's inputs and result, for the reference to judge.
 
-For the length of a job, the tool's block fit (``fit_denovo_multi`` in
-``application/assemble.py``, ``fit_calling_multi`` in
-``application/call.py``, the one call per block through which every
-(locus, sample) problem goes to the sampler) is wrapped: each problem's
-encoded reads and read counts are kept, and from the trace the sampler
-returns for it, a few (genotype state, log-likelihood) pairs drawn from
-the seed.  The reference matches each problem to its (locus, sample) by
-the reads alone, so the order of the problems is the program's own
-business.  Nothing else of the program is touched.  A tool whose block
-fit is not found records nothing, and the run then reads no sampler
-result: the check counts that as a failure, not as a pass.
+For the length of a job, a tool's block fit (its tool file's ``tap``
+names the site: ``fit_denovo_multi`` in ``application/assemble.py``,
+``fit_calling_multi`` in ``application/call.py``, the one call per block
+through which every (locus, sample) problem goes to the sampler) is
+wrapped: each problem's encoded reads and read counts are kept, and from
+the trace the sampler returns for it, a few (genotype state,
+log-likelihood) pairs drawn from the seed.  The reference matches each
+problem to its (locus, sample) by the reads alone, so the order of the
+problems is the program's own business.  Nothing else of the program is
+touched.  A site that is not in the program fails the run, naming it.
 """
 
 import contextlib
@@ -19,10 +18,6 @@ import importlib
 
 import numpy as np
 
-SITES = {
-    "assemble": ("mchap_tpu_torch.application.assemble", "fit_denovo_multi"),
-    "call": ("mchap_tpu_torch.application.call", "fit_calling_multi"),
-}
 STATES_PER_PROBLEM = 2
 
 
@@ -58,29 +53,33 @@ def kept_states(trace, burn):
     return g.reshape((-1,) + g.shape[2:]), np.ones(g.shape[0] * g.shape[1], np.int64)
 
 
+def problem_entry(problem, trace, rng):
+    """What the tap keeps of one problem: its ``reads`` and ``counts``,
+    and ``states`` sampled from its trace."""
+    return dict(reads=np.array(problem["reads"], float),
+                counts=np.array(problem["counts"], float), states=sample_states(trace, rng))
+
+
 @contextlib.contextmanager
-def tap(tool, seed, burn=0):
-    """Record the sampler stage of the jobs run inside the block, whose
-    traces keep what follows the cell's ``burn`` steps: yields a
-    list that fills with one dict per problem (``reads``, ``counts``,
-    ``states``, and for ``assemble`` ``kept``)."""
-    record = []
-    module_name, name = SITES[tool]
+def tap(site, seed, entry=problem_entry):
+    """Record the sampler stage of the jobs run inside the block at
+    ``site``, (module, function): a block fit that takes a list of
+    problems and returns one trace each.  Yields a list that fills with
+    ``entry(problem, trace, rng)`` for each problem, ``rng`` drawn from
+    ``seed``.  Raises LookupError, naming the site, where the program
+    has no such function."""
+    module_name, name = site
     module = importlib.import_module(module_name)
     real = getattr(module, name, None)
     if real is None:
-        yield record
-        return
+        raise LookupError(f"gpubench: the tap's site {module_name}.{name} is not in the program")
+    record = []
     rng = np.random.default_rng([seed, 0x7A9])
 
     def fit(problems, *args, **kwargs):
         traces = real(problems, *args, **kwargs)
         for p, t in zip(problems, traces):
-            entry = dict(reads=np.array(p["reads"], float), counts=np.array(p["counts"], float),
-                         states=sample_states(t, rng))
-            if tool == "assemble":  # tabulated by the judge, after the window
-                entry["kept"] = kept_states(t, burn)
-            record.append(entry)
+            record.append(entry(p, t, rng))
         return traces
 
     setattr(module, name, fit)

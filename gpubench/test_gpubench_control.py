@@ -22,16 +22,15 @@ def _failed(cell, numbers):
 def test_control_fails_small(name):
     cell = run.load_cell(name)
     cell["dataset"] = dict(cell["dataset"], **SMALL)
-    numbers, _ = control.control_numbers(cell, 2**35 + 7)
+    numbers, _ = control.control_numbers(cell)
     assert "llk_err_max" in _failed(cell, numbers), numbers
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed", [2**34 + 11, 2**34 + 22, 2**34 + 33])
 @pytest.mark.parametrize("name", CELLS)
-def test_control_fails_at_cell_size(card, name, seed, capsys):
+def test_control_fails_at_cell_size(card, name, capsys):
     cell = run.load_cell(name)
-    numbers, _ = control.control_numbers(cell, seed, device="cuda")
+    numbers, _ = control.control_numbers(cell, device="cuda")
     with capsys.disabled():
-        print(f"\ncontrol {name} {seed}: {json.dumps(numbers)}")
+        print(f"\ncontrol {name}: {json.dumps(numbers)}")
     assert _failed(cell, numbers), numbers

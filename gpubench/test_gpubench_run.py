@@ -5,7 +5,6 @@ the search for a card skipped, the faults a cell can have make
 
 import contextlib
 import json
-import math
 import os
 import subprocess
 import sys
@@ -18,8 +17,6 @@ from gpubench import run
 torch.set_num_threads(1)
 SMALL = dict(n_samples=4, n_loci=3, snvs_per_locus=[9, 8, 10], reads_per_sample=24,
              n_triallelic=1, locus_length=120)
-CELLS = ["assemble.biparental", "call.biparental", "assemble.parents-tempered",
-         "call.biparental-dirmul"]
 FAULTS = ["state_unchanged", "half_batch", "answer_altered", "calls_dotted"]
 
 
@@ -50,6 +47,7 @@ def test_harness_and_program_import_no_jax():
         "from gpubench.reference import judge, model, reads\n"
         "bench = json.load(open('BENCHMARK.json'))\n"
         "[run.load_metric(m['name']) for m in bench['per_layer']]\n"
+        "[run.load_tool(json.load(open(c['file']))['tool']) for c in bench['configs']]\n"
         "import mchap_tpu_torch.application.cli, mchap_tpu_torch.application.assemble\n"
         "import mchap_tpu_torch.application.call\n"
         "list(jobs._counters())\n"
@@ -62,53 +60,6 @@ def test_harness_and_program_import_no_jax():
 
 
 # -- faults, on the CPU --------------------------------------------------
-
-
-def _k1_unchanged(real):
-    """K1 (``ops/cuda_denovo.denovo_sampler``) whose every step returns the
-    chains' initial state, with that state's log-likelihood."""
-    from mchap_tpu_torch.ops import cuda_denovo
-
-    def frozen(lr, counts, g_init, nall, pbreak, problem, *, n_steps, **kwargs):
-        trace, _ = real(lr, counts, g_init, nall, pbreak, problem, n_steps=1, **kwargs)
-        P = g_init.shape[0]
-        base = cuda_denovo.next_pow2(max(lr.shape[2], 2))
-        packed = sum(g_init[h].long() * base ** h for h in range(P))  # [NB, C]
-        prob = problem.long()
-        # lr [S, NB, A, R]: each haplotype's read log-probability, summed over sites
-        per_site = torch.stack([
-            torch.gather(lr[prob], 2, g_init[h].long().T[:, :, None, None]
-                         .expand(-1, -1, 1, lr.shape[3]))[:, :, 0] for h in range(P)])
-        hap = per_site.sum(dim=2)  # [P, C, R]
-        llk = ((torch.logsumexp(hap, dim=0) - math.log(P)) * counts[prob]).sum(dim=1)
-        return (packed.to(trace.dtype)[None].repeat(n_steps, 1, 1),
-                llk.to(torch.float32)[None].repeat(n_steps, 1))
-    return frozen
-
-
-def _k2_unchanged(real):
-    """K2 (``ops/cuda_calling.calling_sampler``, which starts every slot at
-    the panel's first haplotype) whose every step returns that state."""
-    def frozen(rh, counts, n_valid, problem, *, n_steps, ploidy, **kwargs):
-        alleles, _ = real(rh, counts, n_valid, problem, n_steps=1, ploidy=ploidy, **kwargs)
-        prob = problem.long()
-        llk = (rh[prob][:, :, 0] * counts[prob]).sum(dim=1)  # every slot on haplotype 0
-        return (torch.zeros_like(alleles).repeat(n_steps, 1, 1),
-                llk.to(torch.float32)[None].repeat(n_steps, 1))
-    return frozen
-
-
-def _route_unchanged(real):
-    """The torch calling route (``ops/calling_mcmc.calling_sampler``) whose
-    every step returns its initial state."""
-    def frozen(seed, row_offset, initial, read_hap, read_counts, *, n_steps, **kwargs):
-        S, C, P = initial.shape
-        rows = torch.arange(S, device=read_hap.device)[:, None, None]
-        rh = read_hap[rows, :, initial.long()]  # [S, C, P, R]
-        llk = ((torch.logsumexp(rh, dim=2) - math.log(P)) * read_counts[:, None, :]).sum(-1)
-        return (initial[:, :, None, :].repeat(1, 1, n_steps, 1).long(),
-                llk[:, :, None].repeat(1, 1, n_steps))
-    return frozen
 
 
 def _half(real):
@@ -141,27 +92,27 @@ def _dotted(real):
     return dotted
 
 
+# every cell that has a file, each with the faults its tool file plants
+CELLS = sorted(p.stem for p in (run.HERE / "workloads").glob("*.json"))
+
+
 @contextlib.contextmanager
 def fault(name, cell):
-    from mchap_tpu_torch.application import assemble as app_assemble
-    from mchap_tpu_torch.application import call as app_call
-    from mchap_tpu_torch.io import vcf
-    from mchap_tpu_torch.models import assemble as m_assemble
-    from mchap_tpu_torch.models import calling as m_calling
+    import importlib
 
+    from mchap_tpu_torch.io import vcf
+
+    tool = run.load_tool(cell["tool"])
     mp = pytest.MonkeyPatch()
     try:
         if name == "state_unchanged":
-            if cell["tool"] == "assemble":
-                mp.setattr(m_assemble, "denovo_sampler", _k1_unchanged(m_assemble.denovo_sampler))
-            elif cell.get("inbreeding"):
-                mp.setattr(m_calling._mcmc, "calling_sampler",
-                           _route_unchanged(m_calling._mcmc.calling_sampler))
-            else:
-                mp.setattr(m_calling, "calling_sampler", _k2_unchanged(m_calling.calling_sampler))
+            for module_name, fn, frozen in tool.unchanged_samplers():
+                module = importlib.import_module(f"mchap_tpu_torch.{module_name}")
+                mp.setattr(module, fn, frozen(getattr(module, fn)))
         elif name == "half_batch":
-            mp.setattr(app_assemble, "fit_denovo_multi", _half(app_assemble.fit_denovo_multi))
-            mp.setattr(app_call, "fit_calling_multi", _half(app_call.fit_calling_multi))
+            module_name, fn = tool.SITE
+            module = importlib.import_module(module_name)
+            mp.setattr(module, fn, _half(getattr(module, fn)))
         elif name == "answer_altered":
             mp.setattr(vcf, "format_sample_field", _altered(vcf.format_sample_field))
         elif name == "calls_dotted":
@@ -174,7 +125,7 @@ def fault(name, cell):
 def small_cell(name):
     cell = run.load_cell(name)
     cell["dataset"] = dict(cell["dataset"], **SMALL)
-    steps, burn = (1000, 500) if cell["tool"] == "call" else (400, 200)
+    steps, burn = run.load_tool(cell["tool"]).SMALL_RUN
     cell["options"] = cell["options"] + ["--mcmc-steps", str(steps), "--mcmc-burn", str(burn)]
     cell["pool"] = 2
     return run.apply_options(cell)
