@@ -201,18 +201,24 @@ class program(call_baseclass.program):
 
     def _finish_locus(self, data, setup, pedigree_trace):
         """Posterior summarisation of every sample from the joint trace
-        (reference call_pedigree.py:172-260)."""
-        haplotypes = setup["haplotypes"]
-        mcmc_haplotype_labels = setup["mcmc_haplotype_labels"]
+        (reference call_pedigree.py:172-260): PEDERR, then each sample."""
         (sample_ploidy, parent_indices, gamete_tau, gamete_lambda,
          _gamete_error) = self._pedigree_arrays(data)
-        pedigree_posterior_error = pedigree_trace.incongruence(
-            sample_ploidy=sample_ploidy,
-            sample_parents=parent_indices,
-            gamete_tau=gamete_tau,
-            gamete_lambda=np.nan_to_num(gamete_lambda),
-        )
+        with timing.stage("pedigree.incongruence", locus=data.locus.name):
+            pedigree_posterior_error = pedigree_trace.incongruence(
+                sample_ploidy=sample_ploidy,
+                sample_parents=parent_indices,
+                gamete_tau=gamete_tau,
+                gamete_lambda=np.nan_to_num(gamete_lambda),
+            )
+        with timing.stage("pedigree.posterior", locus=data.locus.name):
+            self._finish_samples(data, setup, pedigree_trace, pedigree_posterior_error)
+        return data
 
+    def _finish_samples(self, data, setup, pedigree_trace, pedigree_posterior_error):
+        """Each sample's fields from its trace within the joint one."""
+        haplotypes = setup["haplotypes"]
+        mcmc_haplotype_labels = setup["mcmc_haplotype_labels"]
         for i, sample in enumerate(data.samples):
             try:
                 trace = pedigree_trace.individual(i)
@@ -264,7 +270,6 @@ class program(call_baseclass.program):
             except Exception as e:
                 message = SAMPLE_ASSEMBLY_ERROR.format(sample=sample)
                 raise SampleAssemblyError(message) from e
-        return data
 
     def _call_locus_block(self, loci):
         """Call a block of loci with ONE joint-pedigree device program.

@@ -113,25 +113,38 @@ def _fit(problems, sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
     sample_ploidy = np.asarray(sample_ploidy)
     max_ploidy = int(sample_ploidy.max())
     h_max = max(len(p["haplotypes"]) for p in problems)
-    rh_np, counts_np, freq_np, nv_np = _assemble_problems_np(problems, h_max)
-    N, S = rh_np.shape[:2]
-    with np.errstate(divide="ignore"):
-        log_freqs = np.log(freq_np)
-    arrays = [torch.as_tensor(x) for x in (rh_np, counts_np, freq_np, log_freqs, nv_np)]
-    devs = problem_devices(N, devices, device) or [device]
-    if initial is None:
-        init = _greedy_initial(*(arrays[i].to(devs[0]) for i in (0, 1, 4)), sample_ploidy,
-                               max_ploidy).cpu()
-    else:
-        init = torch.as_tensor(np.asarray(initial, np.int64)).expand(N, S, max_ploidy)
-    arrays.append(init.contiguous())
+    with _timing.stage("pedigree.prep", loci=len(problems), samples=len(sample_ploidy)):
+        rh_np, counts_np, freq_np, nv_np = _assemble_problems_np(problems, h_max)
+        N, S = rh_np.shape[:2]
+        with np.errstate(divide="ignore"):
+            log_freqs = np.log(freq_np)
+        arrays = [torch.as_tensor(x) for x in (rh_np, counts_np, freq_np, log_freqs, nv_np)]
+        devs = problem_devices(N, devices, device) or [device]
+        if initial is None:
+            init = _greedy_initial(*(arrays[i].to(devs[0]) for i in (0, 1, 4)), sample_ploidy,
+                                   max_ploidy).cpu()
+        else:
+            init = torch.as_tensor(np.asarray(initial, np.int64)).expand(N, S, max_ploidy)
+        arrays.append(init.contiguous())
 
-    reason = _k3.k3_unsupported_reason(
-        sample_ploidy, sample_parents, gamete_tau, gamete_lambda, step_type
-    )
+        reason = _k3.k3_unsupported_reason(
+            sample_ploidy, sample_parents, gamete_tau, gamete_lambda, step_type
+        )
+        if reason is None:
+            plan = _k3.Plan(sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
+                            gamete_error, swap_parental_alleles=swap_parental_alleles)
+    # the updates the route makes: a slot of each sample, a swap of each
+    # parental pair (K3 skips a pair (p, p)), per (locus, chain) and step
+    runs = N * chains * steps
     if reason is None:
-        plan = _k3.Plan(sample_ploidy, sample_parents, gamete_tau, gamete_lambda,
-                        gamete_error, swap_parental_alleles=swap_parental_alleles)
+        n_pairs = len(plan.pairs)  # none without swaps
+        _timing.count("pedigree.waves", len(plan.waves))
+    else:
+        n_pairs = len(_kernel.parental_pair_markov_blankets(
+            sample_parents, _kernel.sample_children_matrix(sample_parents))[0]
+        ) if swap_parental_alleles else 0
+    _timing.count("pedigree.sample_updates", runs * int(sample_ploidy.sum()))
+    _timing.count("pedigree.pair_swaps", runs * n_pairs)
 
     def launch(sh):
         rh, counts, freqs, log_freqs, n_valid, init = sh.arrays

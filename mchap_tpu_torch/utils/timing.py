@@ -47,10 +47,17 @@ nested under the one named:
 - ``device.homfilter``, ``host.chain_init``, ``device.tabulate``,
   ``device.trace_fetch``, ``device.trace_unpack`` (device_sampler) the
                          fits' steps (``models/*``).
+- ``pedigree.prep``      (device_sampler) ``call-pedigree``'s host work
+                         before the launch (``models/pedigree._fit``: the
+                         read-haplotype matrices, the greedy start, K3's
+                         plan): ``loci``, ``samples``.
 - ``summarize_format``   (block) posteriors and VCF records.
 - ``posterior.samples``  (summarize_format) one locus's posteriors and
                          per-sample fields; ``host.posterior_tab`` inside.
 - ``vcf.record``         (summarize_format) one locus's INFO and record.
+- ``pedigree.incongruence``, ``pedigree.posterior`` (summarize_format)
+                         ``call-pedigree``'s PEDERR pass over one locus's
+                         joint trace, then its per-sample summaries.
 
 That is the tree of a block of loci (``--locus-batch`` above 1, the
 default on a card).  A locus run alone (``baseclass.call_locus``) fits
@@ -64,8 +71,12 @@ and ``summarize_format`` never nest in one another.  The counters:
 (read, SNV) calls read off reads, before mates merge; counted in
 ``io/bam.extract_read_variants``), ``encoding.unique_reads``,
 ``sampler.problems`` (problems this process ran), ``sampler.steps``
-(compound MCMC steps: problems x chains x steps) and
-``denovo.overflow_problems`` (problems whose tabulation overflowed).
+(compound MCMC steps: problems x chains x steps),
+``denovo.overflow_problems`` (problems whose tabulation overflowed) and,
+for ``call-pedigree``, ``pedigree.sample_updates`` (slot updates: loci x
+chains x steps x the samples' slots), ``pedigree.pair_swaps`` (loci x
+chains x steps x parental pairs) and ``pedigree.waves`` (K3's waves, once
+a block).
 
 With recording off, a span or a counter costs one flag check.  All
 state lives in the ``TIMERS`` singleton (one run streams one VCF);

@@ -329,6 +329,57 @@ def test_snv_calls_counter_counts_calls_before_mates_merge(dataset, monkeypatch,
     assert f"io: {per_read:.4f} SNV calls per read extracted" in err.getvalue()
 
 
+#: the spans of a ``call-pedigree`` block, with their parents
+PARENT_PEDIGREE = dict(
+    {name: PARENT[name] for name in (
+        "read_loci", "block", "encode_reads", "io.read_extract", "io.alignment_load",
+        "encoding.reads", "device_sampler", "device.launch", "device.sync",
+        "device.trace_fetch", "summarize_format")},
+    **{"pedigree.prep": "device_sampler", "pedigree.incongruence": "summarize_format",
+       "pedigree.posterior": "summarize_format"},
+)
+
+
+def test_call_pedigree_spans_and_counters(tmp_path, monkeypatch):
+    """A ``call-pedigree`` block of 2 loci over 2 parents and 2 F1: its
+    span tree, the host preparation's attributes, a PEDERR pass and the
+    per-sample summaries per locus, and the pedigree counters."""
+    from mchap_tpu_torch.ops.cuda_pedigree import Plan
+
+    data = write_dataset(tmp_path, n_samples=4, n_loci=2, pedigree=True, seed=3)
+    panel = write_haplotype_vcf(tmp_path / "haplotypes.vcf", data)
+    steps, chains = 20, 2
+    argv = ["mchap", "call-pedigree", "--bam", *data["bams"], "--ploidy", "4",
+            "--reference", data["reference"], "--haplotypes", panel,
+            "--sample-parents", data["pedigree"], "--mcmc-steps", str(steps),
+            "--mcmc-burn", "5", "--device", "cpu", "--locus-batch", "2"]
+    timers = _enabled(monkeypatch, tmp_path)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        assert main(argv) == 0
+    records = parse_vcf_records(out.getvalue())
+    assert len(records) == 2
+
+    by_id = {s.id: s for s in timers.spans}
+    assert {s.name for s in timers.spans} == set(PARENT_PEDIGREE)
+    for s in timers.spans:
+        parent = by_id[s.parent].name if s.parent is not None else None
+        assert parent == PARENT_PEDIGREE[s.name], (s.name, parent)
+    assert [s.attrs for s in timers.spans if s.name == "pedigree.prep"] == [
+        {"loci": 2, "samples": 4}]
+    for name in ("pedigree.incongruence", "pedigree.posterior"):
+        assert [s.attrs for s in timers.spans if s.name == name] == [
+            {"locus": r["ID"]} for r in records]
+
+    plan = Plan([4] * 4, [[-1, -1], [-1, -1], [0, 1], [0, 1]], [[2, 2]] * 4,
+                [[0.0, 0.0]] * 4, [[0.01, 0.01]] * 4)
+    runs = 2 * chains * steps  # loci x chains x steps
+    counters = timers.counters
+    assert counters["pedigree.sample_updates"] == runs * 4 * 4
+    assert counters["pedigree.pair_swaps"] == runs * len(plan.pairs) == runs
+    assert counters["pedigree.waves"] == len(plan.waves) > 0
+
+
 @pytest.mark.parametrize("tool", ["call", "assemble"])
 def test_benchmark_span_readers_split_the_stages(dataset, tool, monkeypatch):
     """The six span readers of ``gpubench/metrics/`` on one job of the
