@@ -302,36 +302,10 @@ class PedigreeAllelesMultiTrace:
     def incongruence(self, sample_ploidy, sample_parents, gamete_tau, gamete_lambda):
         """Per-sample rate of pedigree-incompatible states (PEDERR).
 
-        Vectorized equivalent of reference ``_trace_incongruence``
-        (classes.py:91-134).
+        Equivalent of reference ``_trace_incongruence``
+        (classes.py:91-134), in one pass over every child and state
+        (``ops/pedigree_mcmc.trace_incongruence``).
         """
-        trace = self.genotypes
-        n_chains, n_steps, n_samples, max_ploidy = trace.shape
-        trace = trace.reshape(n_chains * n_steps, n_samples, max_ploidy)
-        sample_parents = np.asarray(sample_parents)
-        out = np.zeros(n_samples)
-        for i in range(n_samples):
-            p, q = sample_parents[i]
-            progeny = trace[:, i, :]
-            if p < 0 and q < 0:
-                continue
-            if p < 0:
-                valid = _kernel.duo_valid(
-                    progeny, trace[:, q, :], gamete_tau[i, 1], gamete_lambda[i, 1]
-                )
-            elif q < 0:
-                valid = _kernel.duo_valid(
-                    progeny, trace[:, p, :], gamete_tau[i, 0], gamete_lambda[i, 0]
-                )
-            else:
-                valid = _kernel.trio_valid(
-                    progeny,
-                    trace[:, p, :],
-                    trace[:, q, :],
-                    gamete_tau[i, 0],
-                    gamete_tau[i, 1],
-                    gamete_lambda[i, 0],
-                    gamete_lambda[i, 1],
-                )
-            out[i] = 1.0 - valid.mean()
-        return out
+        return _kernel.trace_incongruence(
+            self.genotypes, sample_parents, gamete_tau, gamete_lambda
+        )

@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from mchap_tpu_torch.utils import timing as _timing
 from mchap_tpu_torch.utils.philox import keyed_uniforms
 
 NEG = -1e300  # finite stand-in for log(0): -inf would turn MH ratios into nan
@@ -377,6 +378,60 @@ def trio_valid(progeny, parent_p, parent_q, tau_p, tau_q, lam_p, lam_q):
     )
     base = (cp.sum(-1) >= tau_p) & (cq.sum(-1) >= np.asarray(tau_q))
     return base & np.any(ok, axis=-1)
+
+
+def _allele_counts(trace):
+    """Copies of each allele in each genotype row, over the alleles the
+    trace holds, renumbered in order: i[..., W], W the number held."""
+    rows = trace.reshape(-1, trace.shape[-1])
+    called = rows >= 0
+    held = np.bincount(rows[called]) > 0
+    width = int(held.sum())
+    idx = np.arange(len(rows))[:, None] * width + (np.cumsum(held) - 1)[rows]
+    counts = np.bincount(idx[called], minlength=len(rows) * width).astype(np.int8)
+    return counts.reshape(trace.shape[:-1] + (width,))
+
+
+def trace_incongruence(trace, sample_parents, gamete_tau, gamete_lambda):
+    """Per-sample share of a joint trace's states in which the sample's
+    genotype cannot come from its known parents' (PEDERR; 0 for founders).
+
+    The one-pass form of ``duo_valid``/``trio_valid`` over every child
+    and state, equal to them bit for bit.  With the child's dose d of
+    each allele and c_p, c_q its copies in each parent as they cap (both
+    at most d), a split t of d between the gametes with sum(t) = tau_p,
+    t <= c_p and d - t <= c_q is an integer box [d - c_q, c_p] under one
+    sum, so it exists exactly when c_p + c_q >= d for every allele and
+    sum(d) - sum(c_q) <= tau_p <= sum(c_p).
+
+    ``trace`` i[..., S, max_ploidy] (padded with -1).  The doses are
+    counted per allele over the alleles the trace holds, not the
+    panel's, so their width stays that of the trace's own alleles.
+    """
+    max_ploidy = trace.shape[-1]
+    trace = trace.reshape(-1, trace.shape[-2], max_ploidy)
+    parents = np.asarray(sample_parents)
+    tau = np.asarray(gamete_tau)
+    lam = np.asarray(gamete_lambda)
+    out = np.zeros(trace.shape[1])
+    kids = np.flatnonzero((parents >= 0).any(-1))
+    if not len(kids):
+        return out
+    known = parents[kids] >= 0  # [C, 2]
+    par = parents[kids].clip(0)
+    counts = _allele_counts(trace)
+    dose, copies = counts[:, kids], counts[:, par]  # [T, C, W], [T, C, 2, W]
+    c = np.minimum(copies, dose[:, :, None])
+    if (lam[kids] > 0).any():  # else the double-reduction rule changes nothing
+        c = _adjust_dr(c, dose[:, :, None], lam[kids])
+    sums = c.sum(-1, dtype=np.int16)  # [T, C, 2]
+    side = (sums >= tau[kids]) | ~known
+    box = np.all(c[:, :, 0] + c[:, :, 1] >= dose, axis=-1)
+    box &= dose.sum(-1, dtype=np.int16) - sums[..., 1] <= tau[kids, 0]
+    valid = side.all(-1) & (box | ~known.all(-1))
+    _timing.count("pedigree.incongruence_checks", valid.size)
+    out[kids] = 1.0 - np.count_nonzero(valid, axis=0) / len(valid)
+    return out
 
 
 # ---------------------------------------------------------------------------

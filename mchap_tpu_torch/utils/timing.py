@@ -75,8 +75,10 @@ and ``summarize_format`` never nest in one another.  The counters:
 ``denovo.overflow_problems`` (problems whose tabulation overflowed) and,
 for ``call-pedigree``, ``pedigree.sample_updates`` (slot updates: loci x
 chains x steps x the samples' slots), ``pedigree.pair_swaps`` (loci x
-chains x steps x parental pairs) and ``pedigree.waves`` (K3's waves, once
-a block).
+chains x steps x parental pairs), ``pedigree.waves`` (K3's waves, once
+a block) and ``pedigree.incongruence_checks`` (the (kept state, sample)
+pairs the PEDERR pass judged, trios and duos, counted in
+``ops/pedigree_mcmc.trace_incongruence``).
 
 With recording off, a span or a counter costs one flag check.  All
 state lives in the ``TIMERS`` singleton (one run streams one VCF);

@@ -378,6 +378,9 @@ def test_call_pedigree_spans_and_counters(tmp_path, monkeypatch):
     assert counters["pedigree.sample_updates"] == runs * 4 * 4
     assert counters["pedigree.pair_swaps"] == runs * len(plan.pairs) == runs
     assert counters["pedigree.waves"] == len(plan.waves) > 0
+    # one PEDERR pass per locus judges each kept state of each child
+    kept = chains * (steps - 5)
+    assert counters["pedigree.incongruence_checks"] == kept * 2 * len(records)
 
 
 @pytest.mark.parametrize("tool", ["call", "assemble"])
