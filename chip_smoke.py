@@ -1456,11 +1456,11 @@ def phase_q(device, card):
 
 
 def phase_r(device):
-    """``fit_calling_batch`` routes before any launch: at ploidy 4 to K2,
+    """``fit_calling_multi`` routes before any launch: at ploidy 4 to K2,
     at ploidy 9 (outside K2) to the torch sampler, K2's count unmoved."""
     import numpy as np
 
-    from mchap_tpu_torch.models.calling import fit_calling_batch
+    from mchap_tpu_torch.models.calling import fit_calling_multi
     from mchap_tpu_torch.testing import simulate_reads
     from mchap_tpu_torch.utils import fallback
 
@@ -1472,9 +1472,9 @@ def phase_r(device):
                                 n_reads=40, seed=i) for i in range(3)]
         fallback.PATHS.clear()
         _reset_launches()
-        traces = fit_calling_batch(
-            ploidy, panel, reads, [np.ones(len(r)) for r in reads], steps=60,
-            chains=2, random_seed=1, device=device,
+        traces = fit_calling_multi(
+            [dict(reads=r, counts=np.ones(len(r)), haplotypes=panel) for r in reads],
+            ploidy, steps=60, chains=2, random_seed=1, device=device,
         )
         k2 = _launches()["calling_sampler"]
         paths = sorted(path for (site, path) in fallback.PATHS if site == "calling")

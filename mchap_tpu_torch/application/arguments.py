@@ -252,10 +252,10 @@ cores = _p(
 )
 locus_batch = _p(
     "--locus-batch", type=str, nargs=1, default=["auto"],
-    help="Number of loci batched into one sampler launch "
-    '(default = "auto": 32 on a GPU, per-locus on CPU). Larger '
-    "batches amortise launches and fill the GPU. "
-    "The MCHAP_LOCUS_BATCH environment variable overrides this flag.",
+    help="Number of loci run together as one block, each block's "
+    "problems fitted in one sampler launch per group "
+    '(default = "auto": 32, on any device). Larger '
+    "batches amortise launches and fill the GPU.",
 )
 basis_targets = _p(
     "--targets", type=str, nargs=1, default=[None],

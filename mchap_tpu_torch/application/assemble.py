@@ -21,15 +21,7 @@ from mchap_tpu_torch.application.arguments import (
     ASSEMBLE_MCMC_PARSER_ARGUMENTS,
     collect_assemble_mcmc_program_arguments,
 )
-from mchap_tpu_torch.application.baseclass import (
-    ALT,
-    FILTER,
-    LOCUS_ASSEMBLY_ERROR,
-    REF,
-    SAMPLE_ASSEMBLY_ERROR,
-    LocusAssemblyError,
-    SampleAssemblyError,
-)
+from mchap_tpu_torch.application.baseclass import ALT, FILTER, REF, sample_errors
 from mchap_tpu_torch.encoding.integer import minimum_error_correction
 from mchap_tpu_torch.io import vcf as VCF
 from mchap_tpu_torch.io.bed import read_bed4
@@ -37,10 +29,9 @@ from mchap_tpu_torch.io.fastalite import FastaFile
 from mchap_tpu_torch.io.loci import Locus
 from mchap_tpu_torch.io.util import qual_of_prob
 from mchap_tpu_torch.models.assemble import (
-    DenovoMCMC,
     call_posterior_haplotypes,
-    fit_denovo_batch,
     fit_denovo_multi,
+    zero_variant_trace,
 )
 from mchap_tpu_torch.numerics.combinadics import (
     count_unique_genotypes,
@@ -99,14 +90,41 @@ class program(baseclass.program):
                 for c, length in zip(fasta.references, fasta.lengths)
             ]
 
-    def _fit_single(self, data, sample, inbreeding, read_dists, read_counts):
-        """Fit one sample's assembler on its own (single-sample loci and
-        samples whose ploidy or ladder differs from the others)."""
-        return (
-            DenovoMCMC(
-                ploidy=data.sample_ploidy[sample],
-                n_alleles=data.locus.count_alleles(),
-                inbreeding=inbreeding,
+    def _fit_block(self, prepared):
+        """Every (locus, sample) assembly problem of the block through one
+        ``fit_denovo_multi`` call per (ploidy, tempering ladder) group.
+        A locus without SNVs takes the constant zero-variant trace, with
+        no launch.  Returns each locus's unburnt traces by sample."""
+        traces = {}
+        groups = {}
+        for idx, (data, _) in enumerate(prepared):
+            n_alleles = data.locus.count_alleles()
+            if len(n_alleles) == 0:
+                traces[idx] = {
+                    sample: zero_variant_trace(
+                        self.mcmc_chains, self.mcmc_steps, data.sample_ploidy[sample]
+                    )
+                    for sample in data.samples
+                }
+                continue
+            for sample in data.samples:
+                problem = dict(
+                    reads=data.read_dists[sample],
+                    counts=data.read_counts[sample],
+                    n_alleles=n_alleles,
+                )
+                if data.sample_inbreeding is not None:
+                    problem["inbreeding"] = data.sample_inbreeding[sample]
+                key = (
+                    data.sample_ploidy[sample],
+                    tuple(self.sample_mcmc_temperatures[sample]),
+                )
+                groups.setdefault(key, []).append((idx, sample, problem))
+
+        for (ploidy, ladder), items in groups.items():
+            fitted = fit_denovo_multi(
+                [p for _, _, p in items],
+                ploidy,
                 steps=self.mcmc_steps,
                 chains=self.mcmc_chains,
                 alpha=self.mcmc_alpha,
@@ -115,75 +133,28 @@ class program(baseclass.program):
                 recombination_step_probability=self.mcmc_recombination_step_probability,
                 partial_dosage_step_probability=self.mcmc_partial_dosage_step_probability,
                 dosage_step_probability=self.mcmc_dosage_step_probability,
-                temperatures=self.sample_mcmc_temperatures[sample],
-                random_seed=self.random_seed,
-                llk_cache_threshold=self.mcmc_llk_cache_threshold,
-                device=self.device,
-            )
-            .fit(reads=read_dists, read_counts=read_counts)
-            .burn(self.mcmc_burn)
-        )
-
-    def call_sample_genotypes(self, data, traces=None):
-        """Per-sample de novo assembly + population allele pooling.
-
-        Reference: application/assemble.py:95-252.  ``traces`` may carry
-        precomputed (unburnt) traces per sample from cross-locus device
-        batching (``_call_locus_block``).
-        """
-        sample_modes = {}
-        sample_posteriors = {}
-
-        # batch all samples through one device program when their ploidy
-        # and tempering ladders agree (the common case)
-        ploidies = [data.sample_ploidy[s] for s in data.samples]
-        ladders = [tuple(self.sample_mcmc_temperatures[s]) for s in data.samples]
-        batch_traces = dict(traces) if traces else {}
-        if not batch_traces and len(data.samples) > 1 and len(set(ploidies)) == 1 and len(set(ladders)) == 1:
-            traces = fit_denovo_batch(
-                ploidy=ploidies[0],
-                n_alleles=data.locus.count_alleles(),
-                reads_list=[data.read_dists[s] for s in data.samples],
-                counts_list=[data.read_counts[s] for s in data.samples],
-                inbreeding_list=(
-                    None
-                    if data.sample_inbreeding is None
-                    else [data.sample_inbreeding[s] for s in data.samples]
-                ),
-                steps=self.mcmc_steps,
-                chains=self.mcmc_chains,
-                alpha=self.mcmc_alpha,
-                beta=self.mcmc_beta,
-                fix_homozygous=self.mcmc_fix_homozygous,
-                recombination_step_probability=self.mcmc_recombination_step_probability,
-                partial_dosage_step_probability=self.mcmc_partial_dosage_step_probability,
-                dosage_step_probability=self.mcmc_dosage_step_probability,
-                temperatures=ladders[0],
+                temperatures=ladder,
                 random_seed=self.random_seed,
                 burn=self.mcmc_burn,
                 device=self.device,
             )
             timing.count(
                 "sampler.steps",
-                len(data.samples) * self.mcmc_chains * self.mcmc_steps
+                len(items) * self.mcmc_chains * self.mcmc_steps
             )
-            batch_traces = dict(zip(data.samples, traces))
+            for (idx, sample, _), t in zip(items, fitted):
+                traces.setdefault(idx, {})[sample] = t
+        return traces
 
+    def _finish_locus(self, data, setup, traces):
+        """Per-sample posteriors + population allele pooling from the
+        locus's traces; reference application/assemble.py:95-252."""
+        sample_modes = {}
+        sample_posteriors = {}
         for sample in data.samples:
-            try:
-                if data.sample_inbreeding is None:
-                    inbreeding = None
-                else:
-                    inbreeding = data.sample_inbreeding[sample]
+            with sample_errors(sample):
                 read_calls = data.read_calls[sample]
-                read_dists = data.read_dists[sample]
-                read_counts = data.read_counts[sample]
-                if sample in batch_traces:
-                    trace = batch_traces[sample].burn(self.mcmc_burn)
-                else:
-                    trace = self._fit_single(
-                        data, sample, inbreeding, read_dists, read_counts
-                    )
+                trace = traces[sample].burn(self.mcmc_burn)
                 posterior = trace.posterior()
                 sample_posteriors[sample] = posterior
 
@@ -207,9 +178,6 @@ class program(baseclass.program):
                 data.sampledata[VCF.FORMAT_MCI][sample] = trace.replicate_incongruence(
                     threshold=self.mcmc_incongruence_threshold
                 )
-            except Exception as e:
-                message = SAMPLE_ASSEMBLY_ERROR.format(sample=sample)
-                raise SampleAssemblyError(message) from e
 
         haplotypes, ref_called = call_posterior_haplotypes(
             list(sample_posteriors.values()),
@@ -230,7 +198,7 @@ class program(baseclass.program):
         data.columndata[ALT] = alts
 
         for sample in data.samples:
-            try:
+            with sample_errors(sample):
                 alleles = _genotype_as_alleles(sample_modes[sample], haplotype_labels)
                 data.sampledata[VCF.FORMAT_GT][sample] = alleles
 
@@ -265,107 +233,6 @@ class program(baseclass.program):
                     data.sampledata[VCF.FORMAT_GL][sample] = np.asarray(
                         natural_log_to_log10(llks)
                     )
-            except Exception as e:
-                message = SAMPLE_ASSEMBLY_ERROR.format(sample=sample)
-                raise SampleAssemblyError(message) from e
-        return data
-
-    def _call_locus_block(self, loci):
-        """Assemble a block of loci with one sampler launch per
-        (ploidy, tempering-ladder) group and shape bucket.
-
-        Cross-locus streaming: every (locus, sample) assembly problem in
-        the block goes into one batched sampler launch
-        (models/assemble.py ``fit_denovo_multi``).  The reference
-        parallelises the same axis with one forked process per locus
-        (baseclass.py:360-394).  Returns formatted VCF lines in input
-        order.
-        """
-        prepared = []
-        with timing.stage("encode_reads"):
-            for locus in loci:
-                try:
-                    data = self._locus_data(locus, self.sample_bams)
-                    self.encode_sample_reads(data)
-                except Exception as e:
-                    message = LOCUS_ASSEMBLY_ERROR.format(
-                        name=locus.name,
-                        contig=locus.contig,
-                        start=locus.start,
-                        stop=locus.stop,
-                    )
-                    raise LocusAssemblyError(message) from e
-                prepared.append((locus, data))
-
-        groups = {}
-        for idx, (locus, data) in enumerate(prepared):
-            n_alleles = locus.count_alleles()
-            if len(n_alleles) == 0:
-                continue  # zero-variant shortcut handled per locus
-            for sample in data.samples:
-                problem = dict(
-                    reads=data.read_dists[sample],
-                    counts=data.read_counts[sample],
-                    n_alleles=n_alleles,
-                )
-                if data.sample_inbreeding is not None:
-                    problem["inbreeding"] = data.sample_inbreeding[sample]
-                key = (
-                    data.sample_ploidy[sample],
-                    tuple(self.sample_mcmc_temperatures[sample]),
-                )
-                groups.setdefault(key, []).append((idx, sample, problem))
-
-        traces = {}
-        with timing.stage("device_sampler"):
-            for (ploidy, ladder), items in groups.items():
-                fitted = fit_denovo_multi(
-                    [p for _, _, p in items],
-                    ploidy,
-                    steps=self.mcmc_steps,
-                    chains=self.mcmc_chains,
-                    alpha=self.mcmc_alpha,
-                    beta=self.mcmc_beta,
-                    fix_homozygous=self.mcmc_fix_homozygous,
-                    recombination_step_probability=self.mcmc_recombination_step_probability,
-                    partial_dosage_step_probability=self.mcmc_partial_dosage_step_probability,
-                    dosage_step_probability=self.mcmc_dosage_step_probability,
-                    temperatures=ladder,
-                    random_seed=self.random_seed,
-                    burn=self.mcmc_burn,
-                    device=self.device,
-                )
-                timing.count(
-                    "sampler.steps",
-                    len(items) * self.mcmc_chains * self.mcmc_steps
-                )
-                for (idx, sample, _), t in zip(items, fitted):
-                    traces[(idx, sample)] = t
-
-        results = []
-        with timing.stage("summarize_format"):
-            for idx, (locus, data) in enumerate(prepared):
-                try:
-                    locus_traces = {
-                        sample: traces[(idx, sample)]
-                        for sample in data.samples
-                        if (idx, sample) in traces
-                    }
-                    with timing.stage("posterior.samples", locus=locus.name):
-                        self.call_sample_genotypes(data, traces=locus_traces or None)
-                    with timing.stage("vcf.record", locus=locus.name):
-                        self.sumarise_vcf_record(data)
-                        results.append(data.format_vcf_record())
-                except Exception as e:
-                    message = LOCUS_ASSEMBLY_ERROR.format(
-                        name=locus.name,
-                        contig=locus.contig,
-                        start=locus.start,
-                        stop=locus.stop,
-                    )
-                    raise LocusAssemblyError(message) from e
-                timing.tick_loci(1, sample_calls=len(data.samples))
-        return results
 
 
 def _genotype_as_alleles(genotype, labels):

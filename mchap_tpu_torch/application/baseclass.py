@@ -1,4 +1,4 @@
-"""Shared per-locus pipeline: encode reads -> call genotypes -> VCF record.
+"""The locus pipeline every tool shares: blocks of loci, reads -> VCF.
 
 Semantics of reference ``mchap/application/baseclass.py``: the same
 stats (RCOUNT/DP/SNVDP/RCALLS), read dedup, INFO reductions (AC/AN/UAN/
@@ -7,15 +7,20 @@ AOP combining per-sample occurrence as 1 - prod(1 - p)), and the same
 error wrapping naming the offending locus/sample.
 
 Port of ``mchap_tpu/application/baseclass.py``.  The reference
-parallelizes with a multiprocessing pool per locus block; here loci are
-processed in order on the host while the GPU runs the batched sampler,
-so ``--cores`` shapes nothing (batching across loci supersedes process
-parallelism).  ``device`` is resolved once, at the entry point.
+parallelizes with a multiprocessing pool per locus block; here
+``run_stdout`` takes the loci in blocks of ``--locus-batch`` and
+``_call_locus_block`` is the one loop every tool runs them through, at
+any block size: each locus's reads are encoded and the tool's
+``_setup_locus`` decides what it needs, one ``_fit_block`` call fits
+the whole block on the device, and ``_finish_locus`` writes each
+locus's posterior fields before its record is formatted.  ``--cores``
+shapes nothing (batching across loci supersedes process parallelism).  ``device`` is resolved once, at the
+entry point.
 """
 
-import os
 import sys
 import warnings
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,6 +55,27 @@ class LocusAssemblyError(Exception):
 
 class SampleAssemblyError(Exception):
     pass
+
+
+@contextmanager
+def locus_errors(locus):
+    """Raise what fails inside as a LocusAssemblyError naming ``locus``."""
+    try:
+        yield
+    except Exception as e:
+        message = LOCUS_ASSEMBLY_ERROR.format(
+            name=locus.name, contig=locus.contig, start=locus.start, stop=locus.stop
+        )
+        raise LocusAssemblyError(message) from e
+
+
+@contextmanager
+def sample_errors(sample):
+    """Raise what fails inside as a SampleAssemblyError naming ``sample``."""
+    try:
+        yield
+    except Exception as e:
+        raise SampleAssemblyError(SAMPLE_ASSEMBLY_ERROR.format(sample=sample)) from e
 
 
 # column keys
@@ -196,7 +222,7 @@ class program:
         """
         locus = data.locus
         for sample in data.samples:
-            try:
+            with sample_errors(sample):
                 with timing.stage("io.read_extract", locus=locus.name, sample=sample):
                     read_chars, read_quals = self._extract_sample_reads(data, sample)
                 read_count = read_chars.shape[0]
@@ -228,13 +254,7 @@ class program:
                     data.read_dists[sample] = read_dists_unique
                     data.read_counts[sample] = read_dist_counts
                 timing.count("encoding.unique_reads", len(read_dist_counts))
-            except Exception as e:
-                message = SAMPLE_ASSEMBLY_ERROR.format(sample=sample)
-                raise SampleAssemblyError(message) from e
         return data
-
-    def call_sample_genotypes(self, data):
-        raise NotImplementedError()
 
     def sumarise_vcf_record(self, data):
         """Population INFO reductions; reference baseclass.py:220-302.
@@ -302,57 +322,55 @@ class program:
             )
         return data
 
-    def call_locus(self, locus, sample_bams):
-        data = self._locus_data(locus, sample_bams)
-        with timing.stage("encode_reads"):
-            self.encode_sample_reads(data)
-        with timing.stage("device_sampler"):
-            self.call_sample_genotypes(data)
-        with timing.stage("summarize_format"):
-            with timing.stage("vcf.record", locus=locus.name):
-                self.sumarise_vcf_record(data)
-                record = data.format_vcf_record()
-        timing.tick_loci(1, sample_calls=len(data.samples))
-        return record
+    # -- the block loop and the tools' hooks -----------------------------
 
-    def _assemble_loci_wrapped(self, loci):
-        for locus in loci:
-            try:
-                result = self.call_locus(locus, self.sample_bams)
-            except Exception as e:
-                message = LOCUS_ASSEMBLY_ERROR.format(
-                    name=locus.name,
-                    contig=locus.contig,
-                    start=locus.start,
-                    stop=locus.stop,
-                )
-                raise LocusAssemblyError(message) from e
-            yield result
+    def _setup_locus(self, data):
+        """What the tool decides from one locus's input before any device
+        work (panel masking, filters, route); handed to ``_fit_block``
+        and ``_finish_locus`` as the locus's ``setup`` (by default
+        nothing)."""
+        return None
 
-    # -- cross-locus device batching ----------------------------------
+    def _fit_block(self, prepared):
+        """Fit the block on the device: ``prepared`` lists each locus's
+        (data, setup).  Returns what each locus's ``_finish_locus``
+        needs, by the locus's place in the block (a locus with nothing
+        fitted may be left out)."""
+        raise NotImplementedError()
 
-    # Tools with a batched implementation (assemble, call) override this
-    # to fit every (locus, sample) problem of the block in ONE device
-    # program; the default processes the block per locus, preserving the
-    # reference's per-locus semantics for the remaining tools.
+    def _finish_locus(self, data, setup, fitted):
+        """Write one locus's posterior fields into ``data``."""
+        raise NotImplementedError()
+
     def _call_locus_block(self, loci):
-        return list(self._assemble_loci_wrapped(loci))
+        """Run a block of loci from reads to formatted VCF records, in
+        input order; each failure names its locus or sample once."""
+        prepared = []
+        with timing.stage("encode_reads"):
+            for locus in loci:
+                with locus_errors(locus):
+                    data = self._locus_data(locus, self.sample_bams)
+                    self.encode_sample_reads(data)
+                    prepared.append((data, self._setup_locus(data)))
+        with timing.stage("device_sampler"):
+            fitted = self._fit_block(prepared)
+        records = []
+        with timing.stage("summarize_format"):
+            for idx, (data, setup) in enumerate(prepared):
+                name = data.locus.name
+                with locus_errors(data.locus):
+                    with timing.stage("posterior.samples", locus=name):
+                        self._finish_locus(data, setup, fitted.get(idx))
+                    with timing.stage("vcf.record", locus=name):
+                        self.sumarise_vcf_record(data)
+                        records.append(data.format_vcf_record())
+                timing.tick_loci(1, sample_calls=len(data.samples))
+        return records
 
     def _locus_batch_size(self):
-        """Resolve the cross-locus batch size.
-
-        Priority: MCHAP_LOCUS_BATCH env var > --locus-batch flag >
-        "auto" (32 on a GPU, 1 on CPU, where per-locus dispatch is
-        cheap and per-locus output stays reproducible with the
-        reference-shaped path).
-        """
-        env = os.environ.get("MCHAP_LOCUS_BATCH", "").strip()
-        value = env or (self.locus_batch or "auto")
-        if str(value).lower() == "auto":
-            if type(self)._call_locus_block is program._call_locus_block:
-                return 1  # tool has no batched path
-            return 32 if self.device.type == "cuda" else 1
-        return max(int(value), 1)
+        """Loci per block: ``--locus-batch``, where "auto" is 32."""
+        value = self.locus_batch or "auto"
+        return 32 if str(value).lower() == "auto" else max(int(value), 1)
 
     def _timed_loci(self):
         """Iterate self.loci() charging construction to ``read_loci``."""
@@ -389,12 +407,9 @@ class program:
         block = self._locus_batch_size()
         for line in self.header():
             emit(line + "\n")
-        for index, loci in enumerate(self._locus_blocks(max(block, 1))):
+        for index, loci in enumerate(self._locus_blocks(block)):
             with timing.stage("block", block=index, loci=len(loci)):
-                if block <= 1:
-                    lines = list(self._assemble_loci_wrapped(loci))
-                else:
-                    lines = self._call_locus_block(loci)
+                lines = self._call_locus_block(loci)
             for line in lines:
                 emit(line + "\n")
         if output:

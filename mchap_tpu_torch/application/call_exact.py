@@ -3,10 +3,11 @@
 Reference: mchap/application/call_exact.py; port of
 ``mchap_tpu/application/call_exact.py``.  Fully deterministic, so its
 output is byte-comparable to ``mchap_tpu``'s.  Each locus's route is
-chosen before any device work: the block path (every sample of every
-block locus through ``exact_stats_sharded``) or the
-per-locus path (panels above ``MAX_BLOCK_PANEL``, dense GL/GP fields).
-A failed block launch fails the run: nothing is retried per locus.
+chosen from its input before any device work: the block route (every
+sample of every such locus of a block through ``exact_stats_sharded``)
+or the per-locus route (panels above ``MAX_BLOCK_PANEL``, dense GL/GP
+fields).  A failed block launch fails the run: nothing is retried per
+locus.
 """
 
 import argparse
@@ -20,15 +21,7 @@ from mchap_tpu_torch.application.arguments import (
     CALL_EXACT_PARSER_ARGUMENTS,
     collect_call_exact_program_arguments,
 )
-from mchap_tpu_torch.application.baseclass import (
-    ALT,
-    FILTER,
-    LOCUS_ASSEMBLY_ERROR,
-    REF,
-    SAMPLE_ASSEMBLY_ERROR,
-    LocusAssemblyError,
-    SampleAssemblyError,
-)
+from mchap_tpu_torch.application.baseclass import ALT, FILTER, REF, sample_errors
 from mchap_tpu_torch.encoding.integer import minimum_error_correction
 from mchap_tpu_torch.io import vcf as VCF
 from mchap_tpu_torch.io.util import qual_of_prob
@@ -36,13 +29,12 @@ from mchap_tpu_torch.numerics.combinadics import index_as_genotype_alleles_np
 from mchap_tpu_torch.numerics.logprob import natural_log_to_log10
 from mchap_tpu_torch.ops import exact
 from mchap_tpu_torch.parallel.sharding import run_sharded
-from mchap_tpu_torch.utils import fallback, timing
+from mchap_tpu_torch.utils import fallback
 from mchap_tpu_torch.utils.device import resolve_device
 
-# panels above this size take the per-locus path inside a block: the
-# padded VCF genotype table would grow past C(32+3, 4) rows per problem
+# panels above this size take the per-locus route: the padded VCF
+# genotype table would grow past C(32+3, 4) rows per problem
 MAX_BLOCK_PANEL = 32
-
 
 
 def exact_stats_sharded(problems, ploidy, device, devices="auto"):
@@ -74,11 +66,13 @@ class program(call_baseclass.program):
         return cls(cli_command=command, **arguments)
 
     def _setup_locus(self, data):
-        """Header fields + invalid-scenario detection.
+        """Header fields, the NOA/AF0 filters and the locus's route, all
+        from the input (reference call_exact.py:52-90).
 
-        Returns (haplotypes, prior_frequencies, invalid); on an invalid
-        locus the NOA/AF0 filter has been appended (reference
-        call_exact.py:52-90).
+        Returns None for a filtered locus, its fields filled as invalid;
+        otherwise (route, haplotypes, prior_frequencies), the route
+        "per-locus" for a panel above MAX_BLOCK_PANEL or dense GL/GP
+        report fields, "block" for the rest.
         """
         haplotypes = data.locus.encode_haplotypes()
         mask_reference_allele = data.locus.mask_reference_allele
@@ -93,27 +87,73 @@ class program(call_baseclass.program):
             assert (prior_frequencies[0] == 0) or np.isnan(prior_frequencies[0])
 
         if mask_reference_allele and len(haplotypes) == 1:
-            invalid_scenario = True
             data.columndata[FILTER].append(VCF.NOA.id)
         elif np.any(np.isnan(prior_frequencies)):
-            invalid_scenario = True
             data.columndata[FILTER].append(VCF.AF0.id)
         else:
-            invalid_scenario = False
-        return haplotypes, prior_frequencies, invalid_scenario
+            dense = (VCF.FORMAT_GL in data.formatfields) or (
+                VCF.FORMAT_GP in data.formatfields
+            )
+            wide = len(haplotypes) > MAX_BLOCK_PANEL
+            route = "per-locus" if dense or wide else "block"
+            return route, haplotypes, prior_frequencies
+        self._fill_invalid_sampledata(data)
+        return None
 
-    def call_sample_genotypes(self, data):
-        """Exact posterior call per sample; reference call_exact.py:52-199."""
-        haplotypes, prior_frequencies, invalid_scenario = self._setup_locus(
-            data
-        )
-        if invalid_scenario:
-            _fill_invalid_sampledata(data)
-            return data
-        fallback.note_path("call-exact", "per-locus")
+    def _fit_block(self, prepared):
+        """Every sample of every "block"-route locus through one
+        ``exact_stats_sharded`` call per ploidy.  Each problem's result
+        is its own exact posterior (panel padding occupies a provably
+        zero-mass suffix of the VCF genotype table).  Returns each
+        locus's statistics by sample."""
+        groups = {}
+        for idx, (data, setup) in enumerate(prepared):
+            if setup is None or setup[0] != "block":
+                continue
+            _, haplotypes, prior_frequencies = setup
+            for sample in data.samples:
+                problem = dict(
+                    reads=data.read_dists[sample],
+                    counts=data.read_counts[sample],
+                    haplotypes=haplotypes,
+                )
+                if data.sample_inbreeding is not None:
+                    problem["inbreeding"] = data.sample_inbreeding[sample]
+                    problem["frequencies"] = prior_frequencies
+                groups.setdefault(data.sample_ploidy[sample], []).append(
+                    (idx, sample, problem)
+                )
 
+        stats = {}
+        for ploidy, items in groups.items():
+            results = exact_stats_sharded(
+                [p for _, _, p in items], ploidy, device=self.device
+            )
+            fallback.note_path("call-exact", "block")
+            for (idx, sample, _), r in zip(items, results):
+                stats.setdefault(idx, {})[sample] = r
+        return stats
+
+    def _finish_locus(self, data, setup, stats):
+        """Each sample's fields: from the block's statistics, or, on the
+        per-locus route, from its own exact call; a filtered locus was
+        filled by ``_setup_locus``."""
+        if setup is None:
+            return
+        route, haplotypes, prior_frequencies = setup
+        if route == "per-locus":
+            self._call_exact_locus(data, haplotypes, prior_frequencies)
+            return
         for sample in data.samples:
-            try:
+            with sample_errors(sample):
+                self._finish_sample_stats(data, sample, stats[sample], haplotypes)
+
+    def _call_exact_locus(self, data, haplotypes, prior_frequencies):
+        """The per-locus route: each sample's exact posterior computed on
+        its own; reference call_exact.py:52-199."""
+        fallback.note_path("call-exact", "per-locus")
+        for sample in data.samples:
+            with sample_errors(sample):
                 ploidy = data.sample_ploidy[sample]
                 read_calls = data.read_calls[sample]
                 read_dists = data.read_dists[sample]
@@ -190,16 +230,12 @@ class program(call_baseclass.program):
                 data.sampledata[VCF.FORMAT_MECP][sample] = (
                     mec / mec_denom if mec_denom > 0 else np.nan
                 )
-            except Exception as e:
-                message = SAMPLE_ASSEMBLY_ERROR.format(sample=sample)
-                raise SampleAssemblyError(message) from e
-        return data
 
     def _finish_sample_stats(self, data, sample, stats, haplotypes):
         """Write one sample's fields from batched exact statistics.
 
         Mirrors the default (posterior_mode) branch of
-        ``call_sample_genotypes`` (reference call_exact.py:161-199).
+        ``_call_exact_locus`` (reference call_exact.py:161-199).
         """
         alleles = np.asarray(stats["alleles"])
         ploidy = data.sample_ploidy[sample]
@@ -226,126 +262,3 @@ class program(call_baseclass.program):
         data.sampledata[VCF.FORMAT_MECP][sample] = (
             mec / mec_denom if mec_denom > 0 else np.nan
         )
-
-    def _call_locus_block(self, loci):
-        """Exact-call a block of loci with one ``exact_stats_sharded`` call
-        per ploidy.
-
-        Cross-locus batching for the deterministic exact caller: each
-        problem's result is its own exact posterior (panel padding
-        occupies a provably zero-mass suffix of the VCF genotype table).
-        Each locus's route is set before any device work: NOA/AF0 loci
-        are filled as invalid, panels above MAX_BLOCK_PANEL and dense
-        GL/GP report fields take the per-locus path, the rest the block
-        path.  The reference parallelises this axis with one process per
-        locus block (baseclass.py:360-394).
-        """
-        prepared = []
-        with timing.stage("encode_reads"):
-            for locus in loci:
-                try:
-                    data = self._locus_data(locus, self.sample_bams)
-                    self.encode_sample_reads(data)
-                except Exception as e:
-                    raise LocusAssemblyError(_locus_error(locus)) from e
-                prepared.append((locus, data))
-
-        dense_fields = any(
-            (VCF.FORMAT_GL in d.formatfields) or (VCF.FORMAT_GP in d.formatfields)
-            for _, d in prepared
-        )
-
-        groups = {}
-        setups = {}
-        if not dense_fields:
-            for idx, (locus, data) in enumerate(prepared):
-                haplotypes, prior_frequencies, invalid = self._setup_locus(
-                    data
-                )
-                if invalid:
-                    _fill_invalid_sampledata(data)
-                    setups[idx] = (haplotypes, "invalid")
-                    continue
-                if len(haplotypes) > MAX_BLOCK_PANEL:
-                    setups[idx] = (haplotypes, "per-locus")
-                    continue
-                setups[idx] = (haplotypes, "block")
-                for sample in data.samples:
-                    problem = dict(
-                        reads=data.read_dists[sample],
-                        counts=data.read_counts[sample],
-                        haplotypes=haplotypes,
-                    )
-                    if data.sample_inbreeding is not None:
-                        problem["inbreeding"] = data.sample_inbreeding[sample]
-                        problem["frequencies"] = prior_frequencies
-                    groups.setdefault(data.sample_ploidy[sample], []).append(
-                        (idx, sample, problem)
-                    )
-
-        stats = {}
-        with timing.stage("device_sampler"):
-            for ploidy, items in groups.items():
-                results = exact_stats_sharded(
-                    [p for _, _, p in items], ploidy, device=self.device
-                )
-                fallback.note_path("call-exact", "block")
-                for (idx, sample, _), r in zip(items, results):
-                    stats[(idx, sample)] = r
-
-        results = []
-        with timing.stage("summarize_format"):
-            for idx, (locus, data) in enumerate(prepared):
-                try:
-                    haplotypes, mode = setups.get(idx, (None, "per-locus"))
-                    if mode == "block":
-                        for sample in data.samples:
-                            try:
-                                self._finish_sample_stats(
-                                    data, sample, stats[(idx, sample)],
-                                    haplotypes,
-                                )
-                            except Exception as e:
-                                message = SAMPLE_ASSEMBLY_ERROR.format(
-                                    sample=sample
-                                )
-                                raise SampleAssemblyError(message) from e
-                    elif mode == "per-locus":
-                        self.call_sample_genotypes(data)
-                    self.sumarise_vcf_record(data)
-                    results.append(data.format_vcf_record())
-                except Exception as e:
-                    raise LocusAssemblyError(_locus_error(locus)) from e
-                timing.tick_loci(1, sample_calls=len(data.samples))
-        return results
-
-
-def _locus_error(locus):
-    return LOCUS_ASSEMBLY_ERROR.format(
-        name=locus.name, contig=locus.contig, start=locus.start, stop=locus.stop
-    )
-
-
-def _fill_invalid_sampledata(data):
-    """All-nan sample fields for NOA/AF0 loci; reference call_exact.py:91-107."""
-    for sample in data.samples:
-        ploidy = data.sample_ploidy[sample]
-        data.sampledata[VCF.FORMAT_GT][sample] = np.full(ploidy, -1, int)
-        for f in (
-            VCF.FORMAT_GQ,
-            VCF.FORMAT_GPM,
-            VCF.FORMAT_SPM,
-            VCF.FORMAT_SQ,
-            VCF.FORMAT_MCI,
-            VCF.FORMAT_MEC,
-            VCF.FORMAT_MECP,
-        ):
-            data.sampledata[f][sample] = np.nan
-        for f in (
-            VCF.FORMAT_ACP,
-            VCF.FORMAT_AFP,
-            VCF.FORMAT_AOP,
-            VCF.FORMAT_GP,
-            VCF.FORMAT_GL,
-        ):
-            data.sampledata[f][sample] = np.array([np.nan])

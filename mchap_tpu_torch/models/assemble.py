@@ -1,9 +1,11 @@
 """DenovoMCMC model: de novo haplotype assembly by batched MCMC (PyTorch).
 
 Port of ``mchap_tpu/models/assemble.py`` (reference
-``mchap/assemble/mcmc.py`` and ``classes.py``).  Every (locus, sample)
-problem of a block and its chains run through one sampler call, on a
-route chosen before any device work:
+``mchap/assemble/mcmc.py`` and ``classes.py``).  ``fit_denovo_multi``
+is the block fit of ``mchap assemble``: every (locus, sample) problem
+of a block and its chains run through one sampler call (``DenovoMCMC.fit``,
+the model API, runs one problem the same way), on a route chosen
+before any device work:
 
 - K1 (``ops/cuda_denovo.py``): the CUDA kernel on a card, its plain
   PyTorch version on the CPU, with the tempering ladder
@@ -18,6 +20,7 @@ route chosen before any device work:
 
 Homozygote-fixed positions stay in the state with n_alleles = 1, and
 both routes compact each problem's het positions to the front first.
+A locus without SNVs launches nothing: ``zero_variant_trace``.
 """
 
 from collections import Counter
@@ -134,9 +137,7 @@ class DenovoMCMC:
         if read_counts is None:
             read_counts = np.ones(len(reads))
         if n_pos == 0:
-            genotypes = np.zeros((self.chains, self.steps, self.ploidy, 0), np.int8)
-            llks = np.full((self.chains, self.steps), np.nan)
-            return GenotypeMultiTrace(genotypes, llks)
+            return zero_variant_trace(self.chains, self.steps, self.ploidy)
         if initial is not None:
             initial = np.asarray(initial)
             if initial.ndim == 2:
@@ -416,54 +417,12 @@ def _fit_denovo_batch_torch(
     return run_sharded(n_samples, arrays, launch, fetch, devices=devices, device=device)
 
 
-def fit_denovo_batch(
-    ploidy,
-    n_alleles,
-    reads_list,
-    counts_list,
-    inbreeding_list=None,
-    steps=1000,
-    chains=2,
-    alpha=1.0,
-    beta=3.0,
-    fix_homozygous=0.999,
-    recombination_step_probability=0.5,
-    partial_dosage_step_probability=0.5,
-    dosage_step_probability=1.0,
-    temperatures=(1.0,),
-    random_seed=None,
-    burn=0,
-    device=None,
-    devices="auto",
-):
-    """Run the de novo assembler for MANY samples of one locus in one
-    launch (one per device of ``devices``,
-    ``parallel.sharding.problem_devices``).  Returns one trace per
-    sample."""
-    n_samples = len(reads_list)
-    n_alleles = np.array(n_alleles, dtype=np.int8)
-    n_pos = len(n_alleles)
-    if n_pos == 0:
-        return [
-            GenotypeMultiTrace(
-                np.zeros((chains, steps, ploidy, 0), np.int8),
-                np.full((chains, steps), np.nan),
-            )
-            for _ in range(n_samples)
-        ]
-    # mock zero-read samples with a single all-gap read (mcmc.py:132-137)
-    reads_list = [
-        r if len(r) else np.full((1,) + r.shape[1:], np.nan) for r in reads_list
-    ]
-    counts_list = [c if len(c) else np.ones(1) for c in counts_list]
-    reads, counts = pad_reads_bucket(reads_list, counts_list)
-    n_alleles_mat = np.broadcast_to(n_alleles[None, :], (n_samples, n_pos)).copy()
-    return _fit_denovo_core(
-        reads, counts, n_alleles_mat, ploidy, inbreeding_list,
-        steps, chains, alpha, beta, fix_homozygous,
-        recombination_step_probability, partial_dosage_step_probability,
-        dosage_step_probability, temperatures, random_seed, burn=burn,
-        device=resolve_device(device), devices=devices,
+def zero_variant_trace(chains, steps, ploidy):
+    """The trace of a locus without SNVs, which needs no launch: every
+    state the empty haplotype, nan llks."""
+    return GenotypeMultiTrace(
+        np.zeros((chains, steps, ploidy, 0), np.int8),
+        np.full((chains, steps), np.nan),
     )
 
 
@@ -661,13 +620,7 @@ def fit_denovo_multi(
 
     nb_max = max(nb_list + [0])
     if nb_max == 0:
-        return [
-            GenotypeMultiTrace(
-                np.zeros((chains, steps, ploidy, 0), np.int8),
-                np.full((chains, steps), np.nan),
-            )
-            for _ in range(n_prob)
-        ]
+        return [zero_variant_trace(chains, steps, ploidy) for _ in range(n_prob)]
     nb_max = (nb_max + 7) // 8 * 8
     a_max = max(a_list)
     r_max = max(64, next_pow2(max(r_list)))

@@ -186,26 +186,26 @@ class CallingMCMC:
 
         Reference semantics: calling/classes.py:49-124 (zero-variant
         shortcut, per-step sorted genotypes).  Without ``initial`` this
-        runs the batched core with one problem (K2 for flat-prior Gibbs,
-        which starts every slot at allele 0; the torch sampler from the
-        greedy genotype otherwise); with ``initial`` the torch sampler
-        starts from it.
+        is ``fit_calling_multi`` with one problem (K2 for flat-prior
+        Gibbs, which starts every slot at allele 0; the torch sampler
+        from the greedy genotype otherwise); with ``initial`` the torch
+        sampler starts from it.
         """
         haplotypes = np.asarray(self.haplotypes)
         inbreeding, frequencies = (None, None) if self.prior is None else self.prior
+        if reads.shape[1] == 0:
+            return zero_variant_trace(self.chains, self.steps, self.ploidy)
+        if read_counts is None:
+            read_counts = np.ones(len(reads))
         if initial is None:
-            return fit_calling_batch(
-                self.ploidy, haplotypes, [reads],
-                [np.ones(len(reads)) if read_counts is None else read_counts],
-                inbreeding_list=None if self.prior is None else [inbreeding],
-                frequencies=frequencies, steps=self.steps, chains=self.chains,
+            problem = dict(reads=reads, counts=read_counts, haplotypes=haplotypes)
+            if self.prior is not None:
+                problem.update(inbreeding=inbreeding, frequencies=frequencies)
+            return fit_calling_multi(
+                [problem], self.ploidy, steps=self.steps, chains=self.chains,
                 random_seed=self.random_seed, step_type=self.step_type,
                 device=self.device,
             )[0]
-        if reads.shape[1] == 0:
-            return _zero_variant_traces(1, self.chains, self.steps, self.ploidy)[0]
-        if read_counts is None:
-            read_counts = np.ones(len(reads))
         read_hap = read_hap_loglik(prepare_reads(reads), haplotypes)[None]
         initial = np.broadcast_to(
             np.asarray(initial, np.int64), (1, self.chains, self.ploidy)
@@ -220,63 +220,13 @@ class CallingMCMC:
         )[0]
 
 
-def _zero_variant_traces(n, chains, steps, ploidy):
-    """Only the reference allele exists: constant traces, nan llks."""
-    return [
-        GenotypeAllelesMultiTrace(
-            np.zeros((chains, steps, ploidy), np.int8),
-            np.full((chains, steps), np.nan),
-            1,
-        )
-        for _ in range(n)
-    ]
-
-
-def fit_calling_batch(
-    ploidy,
-    haplotypes,
-    reads_list,
-    counts_list,
-    inbreeding_list=None,
-    frequencies=None,
-    steps=1000,
-    chains=2,
-    random_seed=None,
-    step_type="Gibbs",
-    burn=0,
-    device=None,
-    devices="auto",
-):
-    """Fit the calling sampler for MANY samples of one locus in one launch.
-
-    The reference application runs one sampler per sample
-    (call.py:120-199); here one read-hap product covers all samples and
-    one launch all samples x chains (one per device of ``devices``,
-    ``parallel.sharding.problem_devices``).  Returns one trace per
-    sample.
-    """
-    haplotypes = np.asarray(haplotypes)
-    n_alleles = len(haplotypes)
-    n_samples = len(reads_list)
-    step_type_i = _step_type(step_type)
-    device = resolve_device(device)
-    if reads_list[0].shape[1] == 0:
-        assert n_alleles == 1
-        return _zero_variant_traces(n_samples, chains, steps, ploidy)
-
-    reads, counts = pad_reads_bucket(reads_list, counts_list)
-    read_hap = read_hap_loglik(prepare_reads(reads), haplotypes)  # [S, R, H] f64
-    seed = random_seed if random_seed is not None else 0
-    if (inbreeding_list is None and step_type_i == 0
-            and k2_unsupported_reason(ploidy, read_hap.shape[1]) is None):
-        return _fit_batch_kernel(
-            read_hap, counts, ploidy, steps, chains, seed,
-            np.full(n_samples, n_alleles), burn=burn, device=device, devices=devices,
-        )
-    return _fit_batch_torch(
-        read_hap, counts, ploidy, steps, chains, seed, step_type_i,
-        inbreeding=inbreeding_list, frequencies=frequencies, burn=burn,
-        device=device, devices=devices,
+def zero_variant_trace(chains, steps, ploidy):
+    """The trace of a locus without SNVs, which needs no launch: only the
+    reference allele exists, so every state is it, with nan llks."""
+    return GenotypeAllelesMultiTrace(
+        np.zeros((chains, steps, ploidy), np.int8),
+        np.full((chains, steps), np.nan),
+        1,
     )
 
 

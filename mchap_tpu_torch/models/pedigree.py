@@ -14,7 +14,8 @@ configuration before any device work, with no fallback:
 Every locus of a block shares the pedigree, so all (locus, chain) chains
 run in one launch.  Chains start from the greedy genotype of each
 (locus, sample).  ``utils/fallback.note_path("pedigree", ...)`` records
-the route taken: ``cuda``, ``plain`` or ``torch``.
+the route taken: ``cuda``, ``plain`` or ``torch``.  A locus without SNVs
+launches nothing (``zero_variant_trace``).
 """
 
 from dataclasses import dataclass
@@ -269,6 +270,17 @@ def fit_pedigree_multi(
         PedigreeAllelesMultiTrace(trace[i], n_allele=int(nv[i]), pre_burned=burn)
         for i in range(len(problems))
     ]
+
+
+def zero_variant_trace(sample_ploidy, chains, steps):
+    """The joint trace of a locus without SNVs, which needs no launch:
+    only the reference allele exists, so every sample's every slot holds
+    it (the slots beyond a sample's ploidy are -1 padding)."""
+    sample_ploidy = np.asarray(sample_ploidy)
+    slots = np.arange(int(sample_ploidy.max()))
+    state = np.where(slots[None, :] < sample_ploidy[:, None], 0, -1).astype(np.int16)
+    genotypes = np.broadcast_to(state, (chains, steps) + state.shape).copy()
+    return PedigreeAllelesMultiTrace(genotypes, n_allele=1)
 
 
 @dataclass

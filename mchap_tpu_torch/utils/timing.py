@@ -54,16 +54,14 @@ nested under the one named:
 - ``summarize_format``   (block) posteriors and VCF records.
 - ``posterior.samples``  (summarize_format) one locus's posteriors and
                          per-sample fields; ``host.posterior_tab`` inside.
-- ``vcf.record``         (summarize_format) one locus's INFO and record.
-- ``pedigree.incongruence``, ``pedigree.posterior`` (summarize_format)
+- ``pedigree.incongruence``, ``pedigree.posterior`` (posterior.samples)
                          ``call-pedigree``'s PEDERR pass over one locus's
                          joint trace, then its per-sample summaries.
+- ``vcf.record``         (summarize_format) one locus's INFO and record.
 
-That is the tree of a block of loci (``--locus-batch`` above 1, the
-default on a card).  A locus run alone (``baseclass.call_locus``) fits
-and summarises each sample in turn, so there ``device_sampler`` holds
-the posteriors too (``host.posterior_tab`` directly under it) and
-``summarize_format`` holds only ``vcf.record``.
+Every tool runs its loci through one block loop
+(``application/baseclass._call_locus_block``), so this is the tree of
+every tool at every ``--locus-batch``, 1 included.
 
 The top-level stages ``read_loci``, ``encode_reads``, ``device_sampler``
 and ``summarize_format`` never nest in one another.  The counters:

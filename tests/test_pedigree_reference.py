@@ -112,13 +112,12 @@ def test_the_reference_refuses_other_pedigrees():
         pedigree.f1_posteriors(fam, llks, [[-1, -1], [-1, -1], [0, 1], [2, 1]])
 
 
-def test_call_pedigree_on_the_cpu_within_the_cells_limits(tmp_path, monkeypatch):
+def test_call_pedigree_on_the_cpu_within_the_cells_limits(tmp_path):
     """``mchap call-pedigree`` through the benchmark's job runner, block
     path, K3's plain version: a 2 + 4 family over 2 loci, judged by the
     tool's judge against the reference, every number within the cell's
     limits (more chains than the cell's to keep the Monte Carlo error
     of a short run small)."""
-    monkeypatch.setenv("MCHAP_LOCUS_BATCH", "32")
     cell = run.load_cell("call-pedigree.biparental")
     cell["dataset"] = dict(cell["dataset"], n_samples=6, n_loci=2, snvs_per_locus=[8, 9],
                            reads_per_sample=16, n_triallelic=1, locus_length=120)

@@ -8,7 +8,9 @@
 - ``GenotypeAllelesMultiTrace`` and ``PosteriorGenotypeAllelesDistribution``
   against JAX's on the same numpy arrays.
 - ``fit_calling_multi`` (flat prior through K2's plain version; priors
-  through the torch sampler) against exact posteriors.
+  through the torch sampler) against exact posteriors, and, with one
+  problem, as ``CallingMCMC.fit`` runs it, bit for bit against the
+  traces of the one-locus batch fit it replaced.
 """
 
 import jax.numpy as jnp
@@ -196,7 +198,8 @@ def test_k2_unsupported_reason():
 @pytest.mark.parametrize("multi", [False, True])
 def test_call_route_outside_k2(multi):
     """Ploidy 9 is outside K2: the flat Gibbs problem is sent to the torch
-    sampler before any launch (K2's plain version would refuse it)."""
+    sampler before any launch (K2's plain version would refuse it), from
+    the block fit and from the model's one-problem ``fit``."""
     from mchap_tpu_torch.utils import fallback
 
     ploidy = 9
@@ -213,9 +216,55 @@ def test_call_route_outside_k2(multi):
         traces = calling.fit_calling_multi(problems, ploidy, steps=20, chains=2,
                                            random_seed=3, device="cpu")
     else:
-        traces = calling.fit_calling_batch(ploidy, HAPS, reads, counts, steps=20,
-                                           chains=2, random_seed=3, device="cpu")
+        traces = [calling.CallingMCMC(ploidy=ploidy, haplotypes=HAPS, steps=20, chains=2,
+                                      random_seed=3, device="cpu").fit(reads[0], counts[0])]
     assert dict(fallback.PATHS) == {("calling", "torch"): 1}
     for t in traces:
         assert t.genotypes.shape == (2, 20, ploidy)
         assert np.isfinite(t.llks).all()
+
+
+#: the traces of the one-locus batch fit (``fit_calling_batch`` at commit
+#: f85a51e) on one problem, seed 5, 6 steps x 2 chains: genotypes, and
+#: llks as float.hex; flat Gibbs through K2's plain version, and a
+#: Dirichlet-multinomial prior through the torch sampler
+PINNED = {
+    "k2": (
+        [[[0, 1, 2, 2], [1, 1, 2, 2], [0, 1, 2, 2], [1, 2, 2, 2], [1, 2, 2, 2], [1, 1, 1, 2]],
+         [[1, 1, 2, 2], [1, 2, 2, 2], [1, 1, 2, 2], [1, 2, 2, 2], [1, 2, 2, 2], [1, 1, 1, 2]]],
+        [["-0x1.66c56c0000000p+2", "-0x1.0e0c6c0000000p+2", "-0x1.66c56c0000000p+2",
+          "-0x1.fdf1d00000000p+1", "-0x1.fdf1d00000000p+1", "-0x1.8b983c0000000p+2"],
+         ["-0x1.0e0c6c0000000p+2", "-0x1.fdf1d00000000p+1", "-0x1.0e0c6c0000000p+2",
+          "-0x1.fdf1d00000000p+1", "-0x1.fdf1d00000000p+1", "-0x1.8b983c0000000p+2"]],
+    ),
+    "torch": (
+        [[[1, 1, 2, 2], [1, 2, 2, 2], [1, 2, 2, 2], [1, 2, 2, 2], [1, 1, 2, 2], [1, 1, 2, 2]],
+         [[0, 1, 2, 2], [1, 2, 2, 2], [1, 2, 2, 3], [1, 2, 2, 3], [1, 2, 2, 2], [1, 1, 2, 3]]],
+        [["-0x1.0e0c6bb1e3688p+2", "-0x1.fdf1cff59b7a8p+1", "-0x1.fdf1cff59b7a8p+1",
+          "-0x1.fdf1cff59b7a8p+1", "-0x1.0e0c6bb1e3688p+2", "-0x1.0e0c6bb1e3688p+2"],
+         ["-0x1.66c56baf4cff2p+2", "-0x1.fdf1cff59b7a7p+1", "-0x1.66c56bd18dbe6p+2",
+          "-0x1.66c56bd18dbe6p+2", "-0x1.fdf1cff59b7a8p+1", "-0x1.bf7e759228081p+2"]],
+    ),
+}
+
+
+@pytest.mark.parametrize("route", list(PINNED))
+def test_one_problem_fit_matches_pinned_batch_fit(route):
+    """``fit_calling_multi`` with one problem, and ``CallingMCMC.fit``
+    through it, give the pinned traces bit for bit."""
+    reads = simulate_reads(HAPS[[0, 1, 1, 2]], n_alleles=2, n_reads=6, errors=True, seed=4)
+    counts = np.ones(len(reads))
+    prior = None if route == "k2" else (0.1, np.array([0.1, 0.2, 0.3, 0.4]))
+    problem = dict(reads=reads, counts=counts, haplotypes=HAPS)
+    if prior is not None:
+        problem.update(inbreeding=prior[0], frequencies=prior[1])
+    multi = calling.fit_calling_multi([problem], 4, steps=6, chains=2, random_seed=5,
+                                      device="cpu")[0]
+    fit = calling.CallingMCMC(ploidy=4, haplotypes=HAPS, prior=prior, steps=6, chains=2,
+                              random_seed=5, device="cpu").fit(reads, counts)
+    genotypes, llks = PINNED[route]
+    want = np.array([[float.fromhex(x) for x in row] for row in llks])
+    for trace in (multi, fit):
+        assert trace.genotypes.dtype == np.int8 and trace.n_allele == len(HAPS)
+        np.testing.assert_array_equal(trace.genotypes, genotypes)
+        np.testing.assert_array_equal(trace.llks, want)

@@ -1,9 +1,10 @@
 """The port's spans and counters (``mchap_tpu_torch/utils/timing.py``).
 
-Unit tests of the span record, then a small ``mchap call`` and ``mchap
-assemble`` on the CPU with ``MCHAP_TIMING=1`` and ``MCHAP_TRACE``: every
-span where it belongs, the counters against the VCF, the trace file, and
-the benchmark's span readers (``gpubench/metrics/``) on one job.  The
+Unit tests of the span record, then small runs of the tools on the CPU
+with ``MCHAP_TIMING=1`` and ``MCHAP_TRACE``: every span where it belongs
+in the one tree of the block loop (``application/baseclass.py``), at
+any block size, the counters against the VCF, the trace file, and the
+benchmark's span readers (``gpubench/metrics/``) on one job.  The
 test marked ``cuda`` holds a kernel's ``torch.profiler`` interval to the
 span it was launched in; on a machine with a card:
 ``python -m pytest --noconftest -m cuda -s tests/test_torch_tracing.py``.
@@ -25,7 +26,7 @@ from test_torch_fixtures import parse_vcf_records, write_dataset, write_haplotyp
 
 torch.set_num_threads(1)
 
-#: each span the two tools open, with the name of its parent (None: a root)
+#: each span the tools open, with the name of its parent (None: a root)
 PARENT = {
     "read_loci": None,
     "block": None,
@@ -46,19 +47,12 @@ PARENT = {
     "host.posterior_tab": "posterior.samples",
     "vcf.record": "summarize_format",
 }
-#: the spans every block of either tool opens
+#: the spans every block of every tool opens
 REQUIRED = {
     "read_loci", "block", "encode_reads", "io.read_extract", "io.alignment_load",
     "encoding.reads", "device_sampler", "device.launch", "device.sync",
     "summarize_format", "posterior.samples", "vcf.record",
 }
-#: a locus run alone fits and summarises each sample in turn: the
-#: posteriors lie inside the sampler stage
-PARENT_PER_LOCUS = {
-    name: parent for name, parent in PARENT.items() if name != "posterior.samples"
-}
-PARENT_PER_LOCUS["host.posterior_tab"] = "device_sampler"
-REQUIRED_PER_LOCUS = REQUIRED - {"posterior.samples"}
 
 
 @pytest.fixture(autouse=True)
@@ -214,18 +208,22 @@ def dataset(tmp_path_factory):
 
 def _argv(data, tool, locus_batch=3):
     argv = ["mchap", tool, "--bam", *data["bams"], "--ploidy", "4",
-            "--reference", data["reference"], "--mcmc-steps", "20", "--mcmc-burn", "5",
-            "--device", "cpu", "--locus-batch", str(locus_batch)]
-    if tool == "call":
+            "--reference", data["reference"], "--device", "cpu",
+            "--locus-batch", str(locus_batch)]
+    if tool != "call-exact":
+        argv += ["--mcmc-steps", "20", "--mcmc-burn", "5"]
+    if tool in ("call", "call-exact"):
         return argv + ["--haplotypes", data["haplotypes"]]
     return argv + ["--targets", data["targets"], "--variants", data["variants"]]
 
 
-@pytest.mark.parametrize("locus_batch", [3, 1], ids=["block", "per_locus"])
-@pytest.mark.parametrize("tool", ["call", "assemble"])
+@pytest.mark.parametrize("tool,locus_batch", [
+    pytest.param(tool, batch, id=f"{tool}-{name}")
+    for tool, runs in (("call", (3, 1)), ("assemble", (3, 1)), ("call-exact", (3,)))
+    for batch, name in zip(runs, ("block", "block_of_one"))
+])
 def test_cli_spans_counters_and_trace(dataset, tool, locus_batch, monkeypatch, tmp_path):
-    parents, required = (PARENT, REQUIRED) if locus_batch > 1 else (
-        PARENT_PER_LOCUS, REQUIRED_PER_LOCUS)
+    """A block of 3 loci, or 3 blocks of one: the same tree either way."""
     trace_path = tmp_path / "trace.json"
     monkeypatch.setenv("MCHAP_TIMING", "1")
     monkeypatch.setenv("MCHAP_TRACE", str(trace_path))
@@ -239,10 +237,10 @@ def test_cli_spans_counters_and_trace(dataset, tool, locus_batch, monkeypatch, t
 
     by_id = {s.id: s for s in timers.spans}
     names = {s.name for s in timers.spans}
-    assert required <= names <= set(parents)
+    assert REQUIRED <= names <= set(PARENT)
     for s in timers.spans:
         parent = by_id[s.parent].name if s.parent is not None else None
-        assert parent == parents[s.name], (s.name, parent)
+        assert parent == PARENT[s.name], (s.name, parent)
         assert s.end is not None
     blocks = [s.attrs for s in timers.spans if s.name == "block"]
     assert blocks == [{"block": i, "loci": locus_batch} for i in range(3 // locus_batch)]
@@ -250,14 +248,17 @@ def test_cli_spans_counters_and_trace(dataset, tool, locus_batch, monkeypatch, t
     assert {(s.attrs["locus"], s.attrs["sample"]) for s in extracts} == {
         (r["ID"], sample) for r in records for sample in dataset["samples"]
     }
-    assert len([s for s in timers.spans if s.name == "vcf.record"]) == 3
+    for name in ("posterior.samples", "vcf.record"):
+        assert [s.attrs for s in timers.spans if s.name == name] == [
+            {"locus": r["ID"]} for r in records]
 
     counters = timers.counters
     rcount = sum(int(c["RCOUNT"]) for r in records for c in r["calls"].values())
     assert counters["io.reads_extracted"] == rcount > 0
     assert 0 < counters["encoding.unique_reads"] <= rcount
     assert counters["sampler.problems"] == 3 * len(dataset["samples"])
-    assert counters["io.records_decoded"] > 0 and counters["sampler.steps"] > 0
+    assert counters["io.records_decoded"] > 0
+    assert (counters.get("sampler.steps", 0) > 0) == (tool != "call-exact")
     summary = err.getvalue()
     assert "io.read_extract" in summary and "unique reads per read extracted" in summary
 
@@ -334,16 +335,17 @@ PARENT_PEDIGREE = dict(
     {name: PARENT[name] for name in (
         "read_loci", "block", "encode_reads", "io.read_extract", "io.alignment_load",
         "encoding.reads", "device_sampler", "device.launch", "device.sync",
-        "device.trace_fetch", "summarize_format")},
-    **{"pedigree.prep": "device_sampler", "pedigree.incongruence": "summarize_format",
-       "pedigree.posterior": "summarize_format"},
+        "device.trace_fetch", "summarize_format", "posterior.samples", "vcf.record")},
+    **{"pedigree.prep": "device_sampler", "pedigree.incongruence": "posterior.samples",
+       "pedigree.posterior": "posterior.samples"},
 )
 
 
 def test_call_pedigree_spans_and_counters(tmp_path, monkeypatch):
     """A ``call-pedigree`` block of 2 loci over 2 parents and 2 F1: its
     span tree, the host preparation's attributes, a PEDERR pass and the
-    per-sample summaries per locus, and the pedigree counters."""
+    per-sample summaries inside each locus's ``posterior.samples``, a
+    ``vcf.record`` per locus, and the pedigree counters."""
     from mchap_tpu_torch.ops.cuda_pedigree import Plan
 
     data = write_dataset(tmp_path, n_samples=4, n_loci=2, pedigree=True, seed=3)
@@ -367,7 +369,8 @@ def test_call_pedigree_spans_and_counters(tmp_path, monkeypatch):
         assert parent == PARENT_PEDIGREE[s.name], (s.name, parent)
     assert [s.attrs for s in timers.spans if s.name == "pedigree.prep"] == [
         {"loci": 2, "samples": 4}]
-    for name in ("pedigree.incongruence", "pedigree.posterior"):
+    for name in ("posterior.samples", "pedigree.incongruence", "pedigree.posterior",
+                 "vcf.record"):
         assert [s.attrs for s in timers.spans if s.name == name] == [
             {"locus": r["ID"]} for r in records]
 
